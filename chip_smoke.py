@@ -1,23 +1,35 @@
-"""Drive the port's main path once on one NVIDIA GPU and check it.
+"""Drive the port's paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device: card name, and nvidia-smi's name and power limit;
-  2. build: compile kernels K1 (sampler) and K2 (matcher) from
-     cusift_tpu_torch/csrc with nvcc for sm_90a;
+  2. build: compile kernels K1-K6 from cusift_tpu_torch/csrc with nvcc for
+     sm_90a (one nvcc per source, all started together);
   3. K1 against its plain torch version at the octave-0 shape of the bench
      config (L=3, 960x1280, N=3840, S=144);
   4. K2 against its plain torch version at N = M = 6144, plus the
      all-invalid, single-candidate and ragged-N cases;
-  5. the full-width main path: `match_pair` on a 480x640 synthetic pair
+  5. the two-view main path: `match_pair` on a 480x640 synthetic pair
      with the bench's SiftConfig (upscale, 6144 keypoints) and 1024 RANSAC
      hypotheses, checking the launch counts and the corner-transfer error
      against the true homography, then timing 10 pair runs;
-  6. the all-zero image probe.
+  6. the all-zero image probe;
+  7. K3 against its plain version on the octave-0 bases of the 8 bench
+     frames [8, 960, 1280] and on one [960, 1280] base;
+  8. K4 against its plain version at L=3x960x1280, N=3072, S=144;
+  9. K5 against its plain version at N=3840, S=144;
+ 10. K6 against its plain version at N=3072 on 12x12 grids;
+ 11. the batched fused-extraction path as bench.py's `bstep` runs it:
+     `extract_batch` of 8 frames with fused_pyramid="pallas_hbm" and
+     sampler="fused", then `match` of the 7 consecutive pairs; checks the
+     launch counts, that the fused features cover the default config's on
+     every frame, and the homography of the 4 true pairs; then times 10
+     batches of both configurations;
+ 12. the separable two-view path: `match_pair` with sampler="separable".
 The line before the last is a JSON object with each kernel's launches on
-the main path, its error against the plain version and both times; the
-last line is {"ok": true, "device": {...}}.  Without a CUDA device it
+its path, its error against the plain version, its times and its bound;
+the last line is {"ok": true, "device": {...}}.  Without a CUDA device it
 exits non-zero and prints no result.
 """
 
@@ -35,9 +47,16 @@ import torch
 # the bench configuration (bench.py --max-kpts 6144, upscaled 640x480)
 BENCH_SIFT = dict(max_kpts=6144, max_kpts_per_octave=3072,
                   octave_budgets=(3072, 1536, 384, 96, 32), upscale=True)
+# the bench's batched headline variant (scripts/tpu_batch_r4a.sh)
+FUSED = dict(fused_pyramid="pallas_hbm", sampler="fused")
 K1_ATOL = 1e-5   # f32, same formula; only FMA contraction differs
 K2_ATOL = 1e-5   # f32 dot products of unit vectors, other summation order
+K3_ATOL = 1e-5   # f32 blur sums in another order than cuDNN's
+K3_MASK = 0.9999  # score masks may differ where a near tie flips
+HIST_REL = 1e-4  # K4/K5: sums over 144 samples in another order, atan2f
 MAX_CORNER_ERR = 2.0   # px, the two-view drive's bound
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
+F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores (same)
 
 
 def log(phase: str, **fields) -> None:
@@ -51,18 +70,100 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of fn() in ms over `iters` calls, after a warm-up."""
+# GPU clock cycles the device spins before a timed loop (about 0.1 s)
+HOLD_CYCLES = 200_000_000
+
+
+def time_ms(fn, label: str, iters: int = 20) -> float:
+    """Mean device time of fn() in ms over `iters` calls, after a warm-up.
+
+    The device first spins while the host enqueues all the calls, so short
+    kernels run back to back and the host's launch overhead is not timed.
+    A fn that waits for the device (a plain version's host-to-device copy
+    does) or a host slower than the spin leaves gaps in the timed span;
+    that is logged as host_gaps for `label`.
+    """
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    t0 = time.perf_counter()
+    marks[1].record()
     for _ in range(iters):
         fn()
-    end.record()
+    marks[2].record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    if enqueue_ms >= marks[0].elapsed_time(marks[1]):
+        log("timing", label=label, host_gaps=True, enqueue_ms=f"{enqueue_ms:.3f}")
+    return marks[1].elapsed_time(marks[2]) / iters
+
+
+def wall_ms(fn, runs: int, warmup: int = 2) -> list[float]:
+    """Host-clock ms of `runs` calls of fn() that end in a synchronise."""
+    times = []
+    for i in range(runs + warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """Least time for the work: bytes over HBM rate vs f32 ops over peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# f32 operations per sample of the shared bilinear-gradient sampling
+# (clip and floor, 8 central differences, two 4-corner interpolations)
+SAMPLE_FLOPS = 40
+# plus magnitude, atan2 and the fractional bin, for K4 and K5
+POLAR_FLOPS = 30
+
+
+def reset_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from cusift_tpu_torch.kernels import matcher, octave, sampler
+
+    sampler.launches = sampler.sep_launches = 0
+    sampler.ori_hist_launches = sampler.desc_raw_launches = 0
+    matcher.launches = octave.launches = 0
+
+
+def read_counts() -> dict:
+    """Every kernel wrapper's launch count since `reset_counts`."""
+    from cusift_tpu_torch.kernels import matcher, octave, sampler
+
+    return {"sampler": sampler.launches, "matcher": matcher.launches,
+            "octave": octave.launches, "ori_hist": sampler.ori_hist_launches,
+            "desc_raw": sampler.desc_raw_launches, "sep": sampler.sep_launches}
+
+
+def _points(gen, dev, L, H, W, N, S, spread=25.0):
+    """Level stack, per-slot levels and sample points, with samples on the
+    borders and outside the image."""
+    gauss = torch.from_numpy(gen.random((L, H, W), dtype=np.float32)).to(dev)
+    lvl = torch.from_numpy(gen.integers(-1, L + 1, N).astype(np.int32)).to(dev)
+    cy = gen.uniform(-20, H + 20, (N, 1))
+    cx = gen.uniform(-20, W + 20, (N, 1))
+    ys = cy + gen.uniform(-spread, spread, (N, S))
+    xs = cx + gen.uniform(-spread, spread, (N, S))
+    ys[:8, :8] = 0.0                      # exactly on the borders
+    xs[8:16, :8] = W - 1
+    ys = torch.from_numpy(ys.astype(np.float32)).to(dev)
+    xs = torch.from_numpy(xs.astype(np.float32)).to(dev)
+    return gauss, lvl, ys, xs
 
 
 def check_sampler(dev, gen: np.random.Generator, L=3, H=960, W=1280,
@@ -70,16 +171,7 @@ def check_sampler(dev, gen: np.random.Generator, L=3, H=960, W=1280,
     """K1 vs its plain version; coordinates include border and outside."""
     from cusift_tpu_torch.kernels import sampler as k1
 
-    gauss = torch.from_numpy(gen.random((L, H, W), dtype=np.float32)).to(dev)
-    lvl = torch.from_numpy(gen.integers(-1, L + 1, N).astype(np.int32)).to(dev)
-    cy = gen.uniform(-20, H + 20, (N, 1))
-    cx = gen.uniform(-20, W + 20, (N, 1))
-    ys = cy + gen.uniform(-25, 25, (N, S))
-    xs = cx + gen.uniform(-25, 25, (N, S))
-    ys[:8, :8] = 0.0                      # exactly on the borders
-    xs[8:16, :8] = W - 1
-    ys = torch.from_numpy(ys.astype(np.float32)).to(dev)
-    xs = torch.from_numpy(xs.astype(np.float32)).to(dev)
+    gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, S)
     dx, dy, inb = k1.sample_grad_patches(gauss, lvl, ys, xs)
     rx, ry, rinb = k1.sample_grad_patches_plain(gauss, lvl, ys, xs)
     torch.cuda.synchronize()
@@ -89,11 +181,12 @@ def check_sampler(dev, gen: np.random.Generator, L=3, H=960, W=1280,
     if not err <= K1_ATOL:
         raise AssertionError(f"K1: max |err| {err} > {K1_ATOL}")
     frac_in = rinb.float().mean().item()
-    ms = time_ms(lambda: k1.sample_grad_patches(gauss, lvl, ys, xs))
-    plain_ms = time_ms(lambda: k1.sample_grad_patches_plain(gauss, lvl, ys, xs))
+    ms = time_ms(lambda: k1.sample_grad_patches(gauss, lvl, ys, xs), "k1")
+    plain_ms = time_ms(lambda: k1.sample_grad_patches_plain(gauss, lvl, ys, xs), "k1 plain")
     log("k1", shape=f"L{L}x{H}x{W},N{N},S{S}", inb_frac=f"{frac_in:.4f}",
         max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(nbytes(gauss, lvl, ys, xs, dx, dy, inb), SAMPLE_FLOPS * N * S))
 
 
 def _unit(gen, n, d=128):
@@ -140,10 +233,18 @@ def check_matcher(dev, gen: np.random.Generator, N=6144, M=6144) -> dict:
             max_abs_err=err)
     ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
     tv = torch.from_numpy(vb).to(dev)
-    ms = time_ms(lambda: k2.top2(ta, tb, tv))
-    plain_ms = time_ms(lambda: k2.top2_plain(ta, tb, tv))
-    log("k2", shape=f"N{N},M{M},D128", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    top, idx = k2.top2(ta, tb, tv)
+    ms = time_ms(lambda: k2.top2(ta, tb, tv), "k2")
+    plain_ms = time_ms(lambda: k2.top2_plain(ta, tb, tv), "k2 plain")
+    # the library yardstick: one cuBLAS GEMM with the -inf column bias as
+    # its epilogue input, then torch.topk
+    bias = torch.where(tv, 0.0, -torch.inf)
+    library_ms = time_ms(lambda: torch.topk(torch.addmm(bias, ta, tb.T), 2, dim=1),
+                         "k2 library")
+    log("k2", shape=f"N{N},M{M},D128", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(nbytes(ta, tb, tv, top, idx), 2.0 * N * M * a.shape[1]))
 
 
 def corner_error(h_est: np.ndarray, h_true: np.ndarray, h: int, w: int) -> float:
@@ -162,8 +263,6 @@ def main_path(dev, h=480, w=640, sift_kw=BENCH_SIFT, num_hypotheses=1024,
     """match_pair on the bench pair; returns the launch counts of one run."""
     from cusift_tpu_torch import MatchConfig, RansacConfig, SiftConfig
     from cusift_tpu_torch.data.synthetic import warped_pair
-    from cusift_tpu_torch.kernels import matcher as k2
-    from cusift_tpu_torch.kernels import sampler as k1
     from cusift_tpu_torch.models.twoview import match_pair
 
     cfg = SiftConfig(**sift_kw)
@@ -172,18 +271,18 @@ def main_path(dev, h=480, w=640, sift_kw=BENCH_SIFT, num_hypotheses=1024,
                                  detail_octaves=4)
     ta, tb = torch.from_numpy(ia).to(dev), torch.from_numpy(ib).to(dev)
 
-    k1.launches = 0
-    k2.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = match_pair(ta, tb, cfg, MatchConfig(), rcfg)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"sampler": k1.launches, "matcher": k2.launches}
+    launches = read_counts()
 
     n_oct = cfg.num_octaves_for(h, w)
-    if launches["sampler"] < 2 * n_oct * 2 or launches["matcher"] < 1:
+    others = sum(launches[k] for k in ("octave", "ori_hist", "desc_raw", "sep"))
+    if launches["sampler"] < 2 * n_oct * 2 or launches["matcher"] < 1 or others:
         raise AssertionError(f"main path launches {launches}, expected >= "
-                             f"{4 * n_oct} sampler and >= 1 matcher")
+                             f"{4 * n_oct} sampler, >= 1 matcher, no other")
     hom = res.homography
     feats_finite = all(bool(torch.isfinite(t).all()) for f in (res.feats_a, res.feats_b)
                        for t in (f.x, f.y, f.sigma, f.orientation, f.desc))
@@ -195,14 +294,7 @@ def main_path(dev, h=480, w=640, sift_kw=BENCH_SIFT, num_hypotheses=1024,
     if not err < MAX_CORNER_ERR:
         raise AssertionError(f"main path: corner transfer {err} px")
 
-    times = []
-    for i in range(timed_runs + 2):      # 2 warm-up runs
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        match_pair(ta, tb, cfg, MatchConfig(), rcfg)
-        torch.cuda.synchronize()
-        if i >= 2:
-            times.append((time.perf_counter() - t0) * 1e3)
+    times = wall_ms(lambda: match_pair(ta, tb, cfg, MatchConfig(), rcfg), timed_runs)
     kpts = int(res.feats_a.count) + int(res.feats_b.count)
     med = statistics.median(times)
     log("main", image=f"{h}x{w}", kpts_a=int(res.feats_a.count),
@@ -230,17 +322,281 @@ def zero_probe(dev, h=480, w=640, sift_kw=BENCH_SIFT) -> None:
     log("zero", kpts=n, ok=False, finite_h=finite)
 
 
+def bench_frames(dev, h=480, w=640, pairs=4):
+    """bench.py's batch: warped_pair(seed=s) for s < pairs, stacked a, b, ...;
+    returns the [2*pairs, h, w] frames and the pairs' true homographies."""
+    from cusift_tpu_torch.data.synthetic import warped_pair
+
+    frames, h_true = [], []
+    for s in range(pairs):
+        a, b, hom = warped_pair(h, w, seed=s, blobs=800, detail=0.25,
+                                detail_octaves=4)
+        frames += [a, b]
+        h_true.append(hom)
+    return torch.from_numpy(np.stack(frames)).to(dev), h_true
+
+
+def check_octave(dev, imgs) -> dict:
+    """K3 vs its plain version on the bench frames' octave-0 bases, batched
+    and single, and batched against per-frame launches."""
+    from cusift_tpu_torch import SiftConfig
+    from cusift_tpu_torch.kernels import octave as k3
+    from cusift_tpu_torch.ops.gaussian import gaussian_taps
+    from cusift_tpu_torch.ops.pyramid import initial_level
+
+    cfg = SiftConfig(**BENCH_SIFT, **FUSED)
+    base = initial_level(imgs, cfg).contiguous()            # [8, 960, 1280]
+    worst, worst_mask = 0.0, 1.0
+    for name, x in (("batch", base), ("single", base[3].contiguous())):
+        got = k3.fused_octave(x, cfg)
+        ref = k3.fused_octave_plain(x, cfg)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got[:2], ref[:2]))
+        fin, rfin = torch.isfinite(got[2]), torch.isfinite(ref[2])
+        agree = (fin == rfin).float().mean().item()
+        both = fin & rfin
+        serr = (got[2] - ref[2])[both].abs().max().item() if both.any() else 0.0
+        if not (err <= K3_ATOL and serr <= K3_ATOL and agree >= K3_MASK):
+            raise AssertionError(f"K3 {name}: max |err| {err}, score err {serr}, "
+                                 f"score masks agree on {agree}")
+        worst, worst_mask = max(worst, err, serr), min(worst_mask, agree)
+        log("k3", case=name, shape=tuple(x.shape), max_abs_err=max(err, serr),
+            mask_agree=f"{agree:.6f}", extrema=int(fin.sum()))
+    batched = k3.fused_octave(base, cfg)
+    for i in range(base.shape[0]):
+        one = k3.fused_octave(base[i].contiguous(), cfg)
+        if not all(torch.equal(a, b[i]) for a, b in zip(one, batched)):
+            raise AssertionError(f"K3: batched frame {i} differs from its own launch")
+    ms = time_ms(lambda: k3.fused_octave(base, cfg), "k3", iters=10)
+    plain_ms = time_ms(lambda: k3.fused_octave_plain(base, cfg), "k3 plain", iters=10)
+    b, h, w = base.shape
+    s = cfg.scales_per_octave
+    taps = [gaussian_taps(sd).shape[0] for sd in k3.level_sigmas(cfg)]
+    pad = max(taps) // 2 + 1
+    moved = 4 * b * ((h + 2 * pad) * (w + 2 * pad) + (3 * s + 2) * h * w)
+    # two 1-D passes of FMAs per level, the DoG, and 3 ops per neighbour
+    flops = b * h * w * (4 * sum(taps) + (s + 2) + 3 * 27 * s)
+    log("k3", shape=f"B{b}x{h}x{w}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        ms_per_frame=f"{ms / b:.4f}", batch_bit_equal=True)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
+                mask_agree=worst_mask, **bound(moved, flops))
+
+
+def _rel_err(got, ref) -> float:
+    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-12)).item()
+
+
+def check_ori_hist(dev, gen, L=3, H=960, W=1280, N=3072, S=144, nb=36) -> dict:
+    """K4 vs its plain version; samples include border and outside."""
+    from cusift_tpu_torch.kernels import sampler as k
+
+    gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, S)
+    wv = torch.from_numpy(gen.uniform(0, 1, (N, S)).astype(np.float32)).to(dev)
+    hist = k.sample_ori_hist(gauss, lvl, ys, xs, wv, nb)
+    ref = k.sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb)
+    err = _rel_err(hist, ref)
+    if not err <= HIST_REL:
+        raise AssertionError(f"K4: max |err| / max |hist| {err} > {HIST_REL}")
+    if not torch.equal(hist, k.sample_ori_hist(gauss, lvl, ys, xs, wv, nb)):
+        raise AssertionError("K4: two runs differ")
+    ms = time_ms(lambda: k.sample_ori_hist(gauss, lvl, ys, xs, wv, nb), "k4")
+    plain_ms = time_ms(lambda: k.sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb),
+                       "k4 plain")
+    log("k4", shape=f"L{L}x{H}x{W},N{N},S{S}", rel_err=err,
+        max_abs_err=(hist - ref).abs().max().item(), ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}")
+    # per sample: the sampling, the polar form, and 2 bins of weight
+    return dict(max_abs_err=(hist - ref).abs().max().item(), rel_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=None,
+                **bound(nbytes(gauss, lvl, ys, xs, wv, hist),
+                        N * S * (SAMPLE_FLOPS + POLAR_FLOPS + 2 * 6)))
+
+
+def check_desc_raw(dev, gen, L=3, H=960, W=1280, N=3840, S=144, nb=8,
+                   cells=16) -> dict:
+    """K5 vs its plain version, with the descriptor's own spatial weights."""
+    from cusift_tpu_torch.kernels import sampler as k
+    from cusift_tpu_torch.ops.describe import _spatial_weights
+
+    gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, S)
+    _, wsp, gw = (torch.from_numpy(a).to(dev) for a in _spatial_weights(12, 4))
+    wv = gw[None, :].expand(N, -1).contiguous()
+    theta = torch.from_numpy(gen.uniform(0, 2 * np.pi, N).astype(np.float32)).to(dev)
+    raw = k.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, nb)
+    ref = k.sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, wsp, nb)
+    err = _rel_err(raw, ref)
+    if not err <= HIST_REL:
+        raise AssertionError(f"K5: max |err| / max |raw| {err} > {HIST_REL}")
+    if not torch.equal(raw, k.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, nb)):
+        raise AssertionError("K5: two runs differ")
+    ms = time_ms(lambda: k.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, nb), "k5")
+    plain_ms = time_ms(lambda: k.sample_desc_raw_plain(gauss, lvl, ys, xs, theta,
+                                                       wv, wsp, nb), "k5 plain")
+    log("k5", shape=f"L{L}x{H}x{W},N{N},S{S}", rel_err=err,
+        max_abs_err=(raw - ref).abs().max().item(), ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}")
+    # per sample: the sampling, the polar form, 2 bins x 4 cells x 2 ops
+    return dict(max_abs_err=(raw - ref).abs().max().item(), rel_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=None,
+                **bound(nbytes(gauss, lvl, ys, xs, theta, wv, wsp, raw),
+                        N * S * (SAMPLE_FLOPS + POLAR_FLOPS + 2 * 4 * 2)))
+
+
+def check_sep(dev, gen, L=3, H=960, W=1280, N=3072, G=12) -> dict:
+    """K6 vs K1's plain version on the expanded grid."""
+    from cusift_tpu_torch.kernels import sampler as k
+
+    gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, G)
+    ys_rows, xs_cols = ys, xs.flip(1).contiguous()
+    dx, dy, inb = k.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols)
+    rdx, rdy, rinb = k.sample_grad_patches_sep_plain(gauss, lvl, ys_rows, xs_cols)
+    torch.cuda.synchronize()
+    if not torch.equal(inb, rinb):
+        raise AssertionError("K6: inb differs from the plain version")
+    err = max((dx - rdx)[rinb].abs().max().item(), (dy - rdy)[rinb].abs().max().item())
+    if not err <= K1_ATOL:
+        raise AssertionError(f"K6: max |err| {err} > {K1_ATOL}")
+    ms = time_ms(lambda: k.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols), "k6")
+    plain_ms = time_ms(lambda: k.sample_grad_patches_sep_plain(gauss, lvl, ys_rows,
+                                                               xs_cols), "k6 plain")
+    log("k6", shape=f"L{L}x{H}x{W},N{N},{G}x{G}", inb_frac=f"{rinb.float().mean():.4f}",
+        max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(nbytes(gauss, lvl, ys_rows, xs_cols, dx, dy, inb),
+                        SAMPLE_FLOPS * N * G * G))
+
+
+def _covers(ref, got, i) -> tuple[bool, float]:
+    """tests/test_extract.py's bound for frame i: valid counts within 15%,
+    and >= 95% of ref's strong half within 1 px and 5% in scale of got."""
+    vr, vg = ref.valid[i], got.valid[i]
+    nr, ng = int(vr.sum()), int(vg.sum())
+    resp = ref.response[i][vr].abs()
+    strong = resp >= resp.median()
+    xyr = torch.stack([ref.x[i], ref.y[i]], -1)[vr][strong]
+    sgr = ref.sigma[i][vr][strong]
+    xyg = torch.stack([got.x[i], got.y[i]], -1)[vg]
+    sgg = got.sigma[i][vg]
+    d = torch.cdist(xyr.double(), xyg.double())
+    srel = (sgr.double()[:, None] / sgg.double()[None].clamp(min=1e-9)).log().abs()
+    covered = ((d < 1.0) & (srel < 0.05)).any(1).double().mean().item()
+    return abs(ng - nr) <= 0.15 * max(nr, 1) and covered >= 0.95, covered
+
+
+def batched_fused_path(dev, imgs, h_true, timed_runs=10) -> dict:
+    """bench.py's bstep on the port: extract_batch + 7 consecutive matches,
+    fused configuration against the default one on the same frames."""
+    from cusift_tpu_torch import MatchConfig, RansacConfig, SiftConfig
+    from cusift_tpu_torch.models.sift import extract_batch
+    from cusift_tpu_torch.ops.match import match
+    from cusift_tpu_torch.ops.ransac import find_homography
+
+    fused_cfg = SiftConfig(**BENCH_SIFT, **FUSED)
+    default_cfg = SiftConfig(**BENCH_SIFT)
+    mcfg = MatchConfig()
+    b, h, w = imgs.shape
+
+    def bstep(cfg):
+        f = extract_batch(imgs, cfg)
+        ms = [match(f.desc[i], f.valid[i], f.desc[i + 1], f.valid[i + 1], mcfg)
+              for i in range(b - 1)]
+        return f, ms
+
+    reset_counts()
+    feats, matches = bstep(fused_cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n_oct = fused_cfg.num_octaves_for(h, w)
+    side = min(h, w) * (2 if fused_cfg.upscale else 1)
+    n_big = sum(1 for o in range(n_oct) if side >> o >= 64)   # K3's size gate
+    if not (launches["octave"] >= n_big and launches["ori_hist"] >= n_oct * b
+            and launches["desc_raw"] >= n_oct * b and launches["matcher"] >= b - 1
+            and launches["sampler"] == 0 and launches["sep"] == 0):
+        raise AssertionError(f"batched fused path launches {launches}: expected "
+                             f"K3 >= {n_big}, K4 and K5 >= {n_oct * b}, "
+                             f"K2 >= {b - 1}, K1 = K6 = 0")
+    ref, _ = bstep(default_cfg)
+    coverage = []
+    for i in range(b):
+        ok, cov = _covers(ref, feats, i)
+        coverage.append(cov)
+        if not ok:
+            raise AssertionError(f"frame {i}: fused features {int(feats.valid[i].sum())} "
+                                 f"vs default {int(ref.valid[i].sum())}, strong "
+                                 f"coverage {cov:.4f}")
+    errs = []
+    for p, hom_true in enumerate(h_true):
+        m = matches[2 * p]
+        j = m.idx.long()
+        pa = torch.stack([feats.x[2 * p], feats.y[2 * p]], -1)
+        pb = torch.stack([feats.x[2 * p + 1][j], feats.y[2 * p + 1][j]], -1)
+        hom = find_homography(pa, pb, m.ok, RansacConfig(num_hypotheses=1024))
+        err = corner_error(hom.h.double().cpu().numpy(), hom_true, h, w)
+        if not (bool(hom.ok) and err < MAX_CORNER_ERR):
+            raise AssertionError(f"pair {p}: ok={bool(hom.ok)} corner transfer {err} px")
+        errs.append(err)
+
+    timing = {}
+    for name, cfg in (("fused", fused_cfg), ("default", default_cfg)):
+        kpts = int(extract_batch(imgs, cfg).valid.sum())
+        times = wall_ms(lambda: bstep(cfg), timed_runs)
+        med = statistics.median(times)
+        timing[name] = med
+        log("batch", config=name, frames=b, kpts=kpts,
+            batch_ms_median=f"{med:.3f}", batch_ms_min=f"{min(times):.3f}",
+            batch_ms_max=f"{max(times):.3f}", ms_per_frame=f"{med / b:.3f}",
+            kpts_per_s=f"{kpts / (med / 1e3):.0f}", card=json.dumps(smi_line()))
+    log("batch", image=f"{b}x{h}x{w}", kpts=[int(v.sum()) for v in feats.valid],
+        default_kpts=[int(v.sum()) for v in ref.valid],
+        strong_coverage_min=f"{min(coverage):.4f}",
+        corner_err_px=[f"{e:.4f}" for e in errs], launches=json.dumps(launches))
+    return launches
+
+
+def separable_path(dev, h=480, w=640, timed_runs=5) -> dict:
+    """match_pair at the main path's configuration with sampler="separable"."""
+    from cusift_tpu_torch import MatchConfig, RansacConfig, SiftConfig
+    from cusift_tpu_torch.data.synthetic import warped_pair
+    from cusift_tpu_torch.models.twoview import match_pair
+
+    cfg = SiftConfig(**BENCH_SIFT, sampler="separable")
+    rcfg = RansacConfig(num_hypotheses=1024)
+    ia, ib, h_true = warped_pair(h, w, seed=1, blobs=800, detail=0.25,
+                                 detail_octaves=4)
+    ta, tb = torch.from_numpy(ia).to(dev), torch.from_numpy(ib).to(dev)
+    reset_counts()
+    res = match_pair(ta, tb, cfg, MatchConfig(), rcfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n = 2 * cfg.num_octaves_for(h, w)
+    if (launches["sep"] < n or launches["sampler"] < n or launches["matcher"] < 1
+            or launches["ori_hist"] or launches["desc_raw"] or launches["octave"]):
+        raise AssertionError(f"separable path launches {launches}, expected "
+                             f"K6 >= {n}, K1 >= {n}, K2 >= 1, no other")
+    err = corner_error(res.homography.h.double().cpu().numpy(), h_true, h, w)
+    if not (bool(res.homography.ok) and err < MAX_CORNER_ERR):
+        raise AssertionError(f"separable path: corner transfer {err} px")
+    times = wall_ms(lambda: match_pair(ta, tb, cfg, MatchConfig(), rcfg), timed_runs)
+    log("separable", image=f"{h}x{w}", kpts_a=int(res.feats_a.count),
+        kpts_b=int(res.feats_b.count), inliers=int(res.homography.num_inliers),
+        corner_err_px=f"{err:.4f}", pair_ms_median=f"{statistics.median(times):.3f}",
+        launches=json.dumps(launches))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    # without the rest of the repository this fails before any output
+    from cusift_tpu_torch.kernels import _build
+
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
     log("device", name=json.dumps(name), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda, smi=json.dumps(smi))
 
-    from cusift_tpu_torch.kernels import _build
     t0 = time.perf_counter()
     _build.library()
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
@@ -254,16 +610,35 @@ def main() -> int:
     k2 = check_matcher(dev, gen)
     launches = main_path(dev)
     zero_probe(dev)
+    imgs, h_true = bench_frames(dev)
+    k3 = check_octave(dev, imgs)
+    k4 = check_ori_hist(dev, gen)
+    k5 = check_desc_raw(dev, gen)
+    k6 = check_sep(dev, gen)
+    batch = batched_fused_path(dev, imgs, h_true)
+    sep = separable_path(dev)
 
+    src = "cusift_tpu_torch/csrc/"
+    tpu = "cusift_tpu/ops/pallas/"
     kernels = [
-        dict(name="sample_grad_patches", route="cuda",
-             source="cusift_tpu_torch/csrc/sampler.cu",
-             replaces="cusift_tpu/ops/pallas/sampler.py:588",
+        dict(name="sample_grad_patches", route="cuda", source=src + "sampler.cu",
+             replaces=tpu + "sampler.py:588", path="two-view (phase 5)",
              launches=launches["sampler"], **k1),
-        dict(name="match_top2", route="cuda",
-             source="cusift_tpu_torch/csrc/matcher.cu",
-             replaces="cusift_tpu/ops/pallas/matcher.py:43",
+        dict(name="match_top2", route="cuda", source=src + "matcher.cu",
+             replaces=tpu + "matcher.py:43", path="two-view (phase 5)",
              launches=launches["matcher"], **k2),
+        dict(name="fused_octave", route="cuda", source=src + "octave.cu",
+             replaces=tpu + "octave.py:186", path="batched fused (phase 11)",
+             launches=batch["octave"], **k3),
+        dict(name="sample_ori_hist", route="cuda", source=src + "sampler.cu",
+             replaces=tpu + "sampler.py:402", path="batched fused (phase 11)",
+             launches=batch["ori_hist"], **k4),
+        dict(name="sample_desc_raw", route="cuda", source=src + "sampler.cu",
+             replaces=tpu + "sampler.py:457", path="batched fused (phase 11)",
+             launches=batch["desc_raw"], **k5),
+        dict(name="sample_grad_patches_sep", route="cuda", source=src + "sampler.cu",
+             replaces=tpu + "sampler.py:517", path="separable two-view (phase 12)",
+             launches=sep["sep"], **k6),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,14 +3,13 @@
 Mirrors `cusift_tpu/`'s module paths (`cusift_tpu_torch/ops/detect.py` is
 held against `cusift_tpu/ops/detect.py`) and keeps its public names,
 argument order and array layouts.  Plain tensor code is PyTorch; each of
-the reference's Pallas kernels on the ported path is a hand-written CUDA
-kernel under `csrc/`, wrapped in `kernels/`.
+the reference's Pallas kernels is a hand-written CUDA kernel under
+`csrc/`, wrapped in `kernels/`.
 
-The frozen configs are shared with the reference, not copied:
-`cusift_tpu/__init__.py` imports only its framework-free `config` module,
-so this import pulls in no jax.
+The port imports nothing of `cusift_tpu`: it keeps its own copy of the
+configs (`config.py`), built from the same keyword arguments.
 """
 
-from cusift_tpu.config import MatchConfig, RansacConfig, SiftConfig
+from .config import MatchConfig, RansacConfig, SiftConfig
 
 __all__ = ["SiftConfig", "MatchConfig", "RansacConfig"]

@@ -3,9 +3,10 @@
 Every `csrc/*.cu` file exposes a plain C entry point, so the library is
 compiled by `nvcc` alone in seconds (no PyTorch headers) and bound with
 `ctypes`.  The build runs at first use, keyed by a hash of the sources and
-flags, into `cusift_tpu_torch/_build/` next to the sources.  A missing
-`nvcc` or a failed compile raises with the compiler's output; there is no
-fallback.
+flags, into `cusift_tpu_torch/_build/` next to the sources: one `nvcc -c`
+per source, all started together, then one link into a single shared
+library.  A missing `nvcc` or a failed compile raises with the compiler's
+output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -22,18 +23,29 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sampler.cu", "matcher.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("sampler.cu", "matcher.cu", "octave.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 # C signature of each entry point: (argtypes, restype); every function
 # returns its cudaError_t as an int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    # gauss, lvl, ys, xs, dx, dy, inb, L, H, W, N, S, stream
+    # K1: gauss, lvl, ys, xs, dx, dy, inb, L, H, W, N, S, stream
     "cusift_sample_grad_patches": ((_P,) * 7 + (_I,) * 5 + (_P,), _I),
-    # a, b, valid_b, top, idx, N, M, D, stream
+    # K6: gauss, lvl, ys_rows, xs_cols, dx, dy, inb, L, H, W, N, GR, GC, stream
+    "cusift_sample_grad_patches_sep": ((_P,) * 7 + (_I,) * 6 + (_P,), _I),
+    # K4: gauss, lvl, ys, xs, wv, hist, L, H, W, N, S, NB, stream
+    "cusift_sample_ori_hist": ((_P,) * 6 + (_I,) * 6 + (_P,), _I),
+    # K5: gauss, lvl, ys, xs, theta, wv, w_spatial, raw, L, H, W, N, S, NB,
+    #     CELLS, stream
+    "cusift_sample_desc_raw": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
+    # K2: a, b, valid_b, top, idx, N, M, D, stream
     "cusift_match_top2": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
+    # K3: padded, samp, dog, score, taps, radii, stride, nlev, R, B, H, W,
+    #     prefilter, stream
+    "cusift_fused_octave": ((_P,) * 6 + (_I,) * 6 + (_F, _P), _I),
 }
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -60,6 +72,18 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise with the output of any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{text}")
+    return "".join(logs)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The compiled kernel library, building it first if needed."""
@@ -67,17 +91,17 @@ def library() -> ctypes.CDLL:
     out = BUILD_DIR / f"libcusift_kernels_{_digest()}.so"
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
+        objs = [str(tmp.with_suffix(f".{Path(s).stem}.o")) for s in SOURCES]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+                          for src, obj in zip(SOURCES, objs)])
+        build_log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]])
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{build_log}")
         os.replace(tmp, out)
+        for obj in objs:
+            os.remove(obj)
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,29 +1,46 @@
-"""K1: the gradient-patch sampler (CUDA kernel `csrc/sampler.cu`).
+"""The gradient samplers K1, K4, K5 and K6 (CUDA kernels `csrc/sampler.cu`).
 
-Replaces the TPU kernel `cusift_tpu/ops/pallas/sampler.py:sample_grad_patches`
-(body `_kernel`).  Its semantics are those of the reference's XLA path,
-`ops/sampling.py:bilinear_sample_pair` over `ops/gaussian.py:image_gradients`:
-the TPU tiling (patch sizes, (8, 128) corner rounding, slot group G, bf16
-gradient rounding) has no meaning on the GPU and is not carried over.
+Each replaces one TPU kernel of `cusift_tpu/ops/pallas/sampler.py`:
 
-What bounds it on the H100: latency of the scattered corner loads (12
-floats of one small window per sample, 9 bytes written).  The kernel runs
-one thread per (slot, sample), slot-major, so a warp's loads fall into one
-window and are served from L1/L2; see the source's header.
+* K1 `sample_grad_patches` (body `_kernel`): bilinear gradients at [N, S]
+  points;
+* K4 `sample_ori_hist` (`_kernel_hist`): K1's sampling, then the soft
+  circular orientation histogram of each slot;
+* K5 `sample_desc_raw` (`_kernel_desc`): K1's sampling, then the raw
+  [nb, cells] descriptor histogram of each slot;
+* K6 `sample_grad_patches_sep` (`_kernel_sep`): K1's sampling on an
+  axis-aligned [GR x GC] grid per slot.
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-`sample_grad_patches_plain`, the same math in plain torch, which is also
-what the tests and `chip_smoke.py` hold the kernel against.
+Their semantics are those of the reference's XLA path
+(`ops/sampling.py:bilinear_sample_pair` over `ops/gaussian.py:image_gradients`,
+and the binning formulas of `ops/orientation.py` and `ops/describe.py`), in
+float32: the TPU tiling (patch sizes, (8, 128) corner rounding, slot group
+G), the bf16 dots and the polynomial atan2 have no meaning on the GPU and
+are not carried over.
+
+What bounds them on the H100: the bytes of the level stack and of the
+per-sample inputs, and the latency of the scattered corner loads; see the
+source's header for the design.
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+`*_plain` version, the same math in plain torch, which is also what the
+tests and `chip_smoke.py` hold the kernel against.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..ops.gaussian import image_gradients
 from . import _build
 
-launches = 0   # kernel launches made by `sample_grad_patches`
+# kernel launches made by each wrapper
+launches = 0               # K1 sample_grad_patches
+sep_launches = 0           # K6 sample_grad_patches_sep
+ori_hist_launches = 0      # K4 sample_ori_hist
+desc_raw_launches = 0      # K5 sample_desc_raw
 
 
 def bilinear_sample_pair(stack2: torch.Tensor, lvl: torch.Tensor,
@@ -32,12 +49,14 @@ def bilinear_sample_pair(stack2: torch.Tensor, lvl: torch.Tensor,
 
     lvl: [N] int; ys, xs: [N, S] float32.  Returns (v0 [N, S], v1 [N, S],
     in_bounds [N, S]).  Indices are clamped like the reference's
-    `GatherScatterMode.CLIP`.
+    `GatherScatterMode.CLIP`.  A NaN point (a dead slot whose refined
+    scale overflowed) samples (0, 0) and is out of bounds, as in the
+    kernels, whose fmaxf drops the NaN.
     """
     l, h, w, _ = stack2.shape
     inb = (ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1)
-    ys = ys.clamp(0.0, h - 1.000001)
-    xs = xs.clamp(0.0, w - 1.000001)
+    ys = ys.nan_to_num(0.0).clamp(0.0, h - 1.000001)
+    xs = xs.nan_to_num(0.0).clamp(0.0, w - 1.000001)
     y0 = torch.floor(ys).to(torch.int64).clamp(max=h - 2)
     x0 = torch.floor(xs).to(torch.int64).clamp(max=w - 2)
     fy = (ys - y0)[..., None]
@@ -53,51 +72,220 @@ def bilinear_sample_pair(stack2: torch.Tensor, lvl: torch.Tensor,
     return v[..., 0], v[..., 1], inb
 
 
+def soft_bins(fbin: torch.Tensor, nb: int) -> torch.Tensor:
+    """[..., nb] weights max(0, 1 - circular distance) of fractional bins."""
+    bins = torch.arange(nb, dtype=fbin.dtype, device=fbin.device)
+    dist = (fbin[..., None] - bins).abs()
+    dist = torch.minimum(dist, nb - dist)
+    return torch.clamp(1.0 - dist, min=0.0)
+
+
+def _fbin(ang: torch.Tensor, nb: int) -> torch.Tensor:
+    return torch.remainder(ang / (2.0 * math.pi) * nb, nb)
+
+
+def orientation_bins(dx, dy, inb, wv, nb: int) -> torch.Tensor:
+    """[K, nb] histograms of gradient angles weighted by mag * wv * inb."""
+    mag = torch.sqrt(dx * dx + dy * dy)
+    w = mag * wv * inb
+    return torch.einsum("ks,ksb->kb", w, soft_bins(_fbin(torch.atan2(dy, dx), nb), nb))
+
+
+def descriptor_contrib(dx, dy, inb, theta, wv, nb: int) -> torch.Tensor:
+    """[N, S, nb] soft bins of (theta - angle) weighted by mag * wv * inb."""
+    mag = torch.sqrt(dx * dx + dy * dy)
+    # gradient direction in the keypoint frame, y-up angle convention
+    ang = theta[:, None] - torch.atan2(dy, dx)
+    w = mag * wv * inb
+    return soft_bins(_fbin(ang, nb), nb) * w[..., None]
+
+
 def sample_grad_patches_plain(gauss: torch.Tensor, lvl: torch.Tensor,
                               ys: torch.Tensor, xs: torch.Tensor):
-    """Plain torch version of the kernel: gradient planes + bilinear gather."""
+    """Plain torch version of K1: gradient planes + bilinear gather."""
     gdx, gdy = image_gradients(gauss)
     return bilinear_sample_pair(torch.stack([gdx, gdy], -1), lvl, ys, xs)
 
 
+def sample_grad_patches_sep_plain(gauss, lvl, ys_rows, xs_cols):
+    """Plain torch version of K6: K1's plain version on the expanded grid."""
+    k, gr = ys_rows.shape
+    gc = xs_cols.shape[1]
+    ys = ys_rows[:, :, None].expand(k, gr, gc).reshape(k, -1)
+    xs = xs_cols[:, None, :].expand(k, gr, gc).reshape(k, -1)
+    return sample_grad_patches_plain(gauss, lvl, ys, xs)
+
+
+def sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb: int) -> torch.Tensor:
+    """Plain torch version of K4: K1's plain sampling + `orientation_bins`."""
+    dx, dy, inb = sample_grad_patches_plain(gauss, lvl, ys, xs)
+    return orientation_bins(dx, dy, inb, wv, nb)
+
+
+def sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, w_spatial,
+                          nb: int) -> torch.Tensor:
+    """Plain torch version of K5: [N, nb, cells], bins major."""
+    dx, dy, inb = sample_grad_patches_plain(gauss, lvl, ys, xs)
+    contrib = descriptor_contrib(dx, dy, inb, theta, wv, nb)
+    return torch.einsum("sc,ksb->kbc", w_spatial, contrib)
+
+
+def _checked(fn: str, device: torch.device, **tensors) -> None:
+    """Raise unless every tensor is a contiguous tensor of its dtype on device.
+
+    tensors: name -> (tensor, dtype)."""
+    for name, (t, dtype) in tensors.items():
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor "
+                             f"on {device}, got {t.dtype} on {t.device}")
+
+
+def _plain_or_cuda(fn: str, gauss: torch.Tensor) -> bool:
+    """True for a CPU stack (take the plain version); raise off CUDA."""
+    if gauss.device.type == "cpu":
+        return True
+    if gauss.device.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for {gauss.device}")
+    if gauss.ndim != 3 or gauss.shape[0] < 1 or gauss.shape[1] < 2 or gauss.shape[2] < 2:
+        raise ValueError(f"{fn}: level stack {tuple(gauss.shape)}")
+    return False
+
+
+def _launch(fn: str, gauss: torch.Tensor, *args) -> None:
+    lib = _build.library()
+    with torch.cuda.device(gauss.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    _build.check(err, fn)
+
+
+def _ptrs(*tensors) -> list[int]:
+    return [t.data_ptr() for t in tensors]
+
+
 def sample_grad_patches(gauss: torch.Tensor, lvl: torch.Tensor,
                         ys: torch.Tensor, xs: torch.Tensor):
-    """Sample image gradients of `gauss` [L, H, W] at (ys, xs) [N, S].
+    """K1: image gradients of `gauss` [L, H, W] at (ys, xs) [N, S].
 
     lvl: [N] int32 level per slot (clipped to [0, L-1]).  Returns
     (dx [N, S] f32, dy [N, S] f32, inb [N, S] bool).
     """
     global launches
-    if gauss.device.type == "cpu":
+    if _plain_or_cuda("sample_grad_patches", gauss):
         return sample_grad_patches_plain(gauss, lvl, ys, xs)
-    if gauss.device.type != "cuda":
-        raise ValueError(f"sample_grad_patches: no kernel for {gauss.device}")
+    f32 = torch.float32
+    _checked("sample_grad_patches", gauss.device, gauss=(gauss, f32),
+             lvl=(lvl, torch.int32), ys=(ys, f32), xs=(xs, f32))
     l, h, w = gauss.shape
     n, s = ys.shape
-    for name, t, dtype in (("gauss", gauss, torch.float32),
-                           ("lvl", lvl, torch.int32),
-                           ("ys", ys, torch.float32),
-                           ("xs", xs, torch.float32)):
-        if t.device != gauss.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"sample_grad_patches: {name} must be a contiguous "
-                             f"{dtype} tensor on {gauss.device}, got {t.dtype} "
-                             f"on {t.device}")
     if lvl.shape != (n,) or xs.shape != (n, s):
         raise ValueError(f"sample_grad_patches: shapes lvl {tuple(lvl.shape)}, "
                          f"ys {tuple(ys.shape)}, xs {tuple(xs.shape)}")
-    if h < 2 or w < 2 or l < 1:
-        raise ValueError(f"sample_grad_patches: level stack {tuple(gauss.shape)}")
-    dx = torch.empty((n, s), dtype=torch.float32, device=gauss.device)
+    dx = torch.empty((n, s), dtype=f32, device=gauss.device)
     dy = torch.empty_like(dx)
     inb = torch.empty((n, s), dtype=torch.bool, device=gauss.device)
     if n * s == 0:
         return dx, dy, inb
-    lib = _build.library()
-    with torch.cuda.device(gauss.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cusift_sample_grad_patches(
-            gauss.data_ptr(), lvl.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-            dx.data_ptr(), dy.data_ptr(), inb.data_ptr(), l, h, w, n, s, stream)
-    _build.check(err, "cusift_sample_grad_patches")
+    _launch("cusift_sample_grad_patches", gauss,
+            *_ptrs(gauss, lvl, ys, xs, dx, dy, inb), l, h, w, n, s)
     launches += 1
     return dx, dy, inb
+
+
+def sample_grad_patches_sep(gauss: torch.Tensor, lvl: torch.Tensor,
+                            ys_rows: torch.Tensor, xs_cols: torch.Tensor):
+    """K6: gradients of `gauss` on the per-slot grid ys_rows [N, GR] x
+    xs_cols [N, GC].
+
+    Returns (dx, dy, inb) shaped [N, GR*GC] in row-major (r * GC + c) order;
+    inb is row-in & col-in.
+    """
+    global sep_launches
+    if _plain_or_cuda("sample_grad_patches_sep", gauss):
+        return sample_grad_patches_sep_plain(gauss, lvl, ys_rows, xs_cols)
+    f32 = torch.float32
+    _checked("sample_grad_patches_sep", gauss.device, gauss=(gauss, f32),
+             lvl=(lvl, torch.int32), ys_rows=(ys_rows, f32), xs_cols=(xs_cols, f32))
+    l, h, w = gauss.shape
+    n, gr = ys_rows.shape
+    if lvl.shape != (n,) or xs_cols.ndim != 2 or xs_cols.shape[0] != n:
+        raise ValueError(f"sample_grad_patches_sep: shapes lvl {tuple(lvl.shape)}, "
+                         f"ys_rows {tuple(ys_rows.shape)}, xs_cols {tuple(xs_cols.shape)}")
+    gc = xs_cols.shape[1]
+    dx = torch.empty((n, gr * gc), dtype=f32, device=gauss.device)
+    dy = torch.empty_like(dx)
+    inb = torch.empty((n, gr * gc), dtype=torch.bool, device=gauss.device)
+    if n * gr * gc == 0:
+        return dx, dy, inb
+    _launch("cusift_sample_grad_patches_sep", gauss,
+            *_ptrs(gauss, lvl, ys_rows, xs_cols, dx, dy, inb), l, h, w, n, gr, gc)
+    sep_launches += 1
+    return dx, dy, inb
+
+
+MAX_SAMPLES = 4096   # K4/K5 keep 2 floats per sample of a slot in shared memory
+
+
+def _check_slots(fn: str, gauss, lvl, ys, xs, wv) -> tuple[int, int]:
+    f32 = torch.float32
+    _checked(fn, gauss.device, gauss=(gauss, f32), lvl=(lvl, torch.int32),
+             ys=(ys, f32), xs=(xs, f32), wv=(wv, f32))
+    n, s = ys.shape
+    if lvl.shape != (n,) or xs.shape != (n, s) or wv.shape != (n, s):
+        raise ValueError(f"{fn}: shapes lvl {tuple(lvl.shape)}, ys {tuple(ys.shape)}, "
+                         f"xs {tuple(xs.shape)}, wv {tuple(wv.shape)}")
+    if s > MAX_SAMPLES:
+        raise ValueError(f"{fn}: {s} samples per slot, at most {MAX_SAMPLES}")
+    return n, s
+
+
+def sample_ori_hist(gauss: torch.Tensor, lvl: torch.Tensor, ys: torch.Tensor,
+                    xs: torch.Tensor, wv: torch.Tensor, nb: int) -> torch.Tensor:
+    """K4: orientation histograms [N, nb] of the slots' sample points.
+
+    wv [N, S]: per-sample weight (radial Gaussian x keypoint validity); a
+    sample outside the image weighs nothing.  Smoothing stays outside.
+    """
+    global ori_hist_launches
+    if _plain_or_cuda("sample_ori_hist", gauss):
+        return sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb)
+    n, s = _check_slots("sample_ori_hist", gauss, lvl, ys, xs, wv)
+    hist = torch.empty((n, nb), dtype=torch.float32, device=gauss.device)
+    if n * s == 0 or nb == 0:
+        return hist.zero_()
+    l, h, w = gauss.shape
+    _launch("cusift_sample_ori_hist", gauss, *_ptrs(gauss, lvl, ys, xs, wv, hist),
+            l, h, w, n, s, nb)
+    ori_hist_launches += 1
+    return hist
+
+
+def sample_desc_raw(gauss: torch.Tensor, lvl: torch.Tensor, ys: torch.Tensor,
+                    xs: torch.Tensor, theta: torch.Tensor, wv: torch.Tensor,
+                    w_spatial: torch.Tensor, nb: int) -> torch.Tensor:
+    """K5: raw descriptor histograms [N, nb, cells], bins major.
+
+    theta [N] slot orientations; wv [N, S] spatial Gaussian weights;
+    w_spatial [S, cells] static bilinear cell weights.  Normalisation
+    stays outside.
+    """
+    global desc_raw_launches
+    if _plain_or_cuda("sample_desc_raw", gauss):
+        return sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, w_spatial, nb)
+    n, s = _check_slots("sample_desc_raw", gauss, lvl, ys, xs, wv)
+    f32 = torch.float32
+    _checked("sample_desc_raw", gauss.device, theta=(theta, f32),
+             w_spatial=(w_spatial, f32))
+    if theta.shape != (n,) or w_spatial.ndim != 2 or w_spatial.shape[0] != s:
+        raise ValueError(f"sample_desc_raw: shapes theta {tuple(theta.shape)}, "
+                         f"w_spatial {tuple(w_spatial.shape)} for [{n}, {s}] samples")
+    cells = w_spatial.shape[1]
+    raw = torch.empty((n, nb, cells), dtype=f32, device=gauss.device)
+    if n * s == 0 or nb * cells == 0:
+        return raw.zero_()
+    l, h, w = gauss.shape
+    _launch("cusift_sample_desc_raw", gauss,
+            *_ptrs(gauss, lvl, ys, xs, theta, wv, w_spatial, raw),
+            l, h, w, n, s, nb, cells)
+    desc_raw_launches += 1
+    return raw

@@ -3,8 +3,13 @@
 Pyramid, detection, orientation, descriptors and compaction with static
 capacities, as in the reference: the result is a `SiftFeatures` buffer of
 `cfg.total_kpts` slots with a validity mask and zeroed dead lanes, so the
-two packages' outputs compare slot by slot.  The gradient sampling of the
-orientation and descriptor stages goes through kernel K1.
+two packages' outputs compare slot by slot.
+
+Kernels by configuration: `fused_pyramid="pallas"`/`"pallas_hbm"` builds
+octaves of at least 64 px through K3 (smaller ones keep the chain);
+orientation and descriptors sample through K1 by default, K4/K5 with
+`sampler="fused"`, and K6/K1 with `sampler="separable"`.  `extract_batch`
+builds the pyramid of all frames at once and detects frame by frame.
 """
 
 from __future__ import annotations
@@ -13,14 +18,15 @@ from typing import NamedTuple
 
 import torch
 
-from cusift_tpu.config import SiftConfig
-
+from ..config import SiftConfig
+from ..kernels import octave as k3
 from ..ops.describe import compact_slots, descriptors
 from ..ops.detect import detect_from_score, extrema_score
 from ..ops.gaussian import downsample2
 from ..ops.keypoints import top_indices
 from ..ops.orientation import dominant_orientations, orientation_histograms
 from ..ops.pyramid import initial_level, octave_levels
+from ..utils.device import as_input
 from ..utils.precision import pin_f32
 
 
@@ -69,36 +75,35 @@ def _topk(feats: SiftFeatures, n: int) -> SiftFeatures:
 
 
 def _octave_planes(img: torch.Tensor, cfg: SiftConfig):
-    """Per octave: (sample_levels [S,H,W], dog [S+2,H,W], score [S,H,W])."""
-    if cfg.fused_pyramid in ("pallas", "pallas_hbm"):
-        raise NotImplementedError(
-            f"fused_pyramid={cfg.fused_pyramid!r} is not ported (ROADMAP "
-            "queue 2: K3 fused_octave)")
-    if cfg.fused_pyramid not in ("auto", "xla"):
+    """Per octave: (sample_levels [..., S, H, W], dog [..., S+2, H, W],
+    score [..., S, H, W]) of a [H, W] image or a [B, H, W] batch."""
+    if cfg.fused_pyramid not in ("auto", "xla", "pallas", "pallas_hbm"):
         raise ValueError(f"unknown fused_pyramid {cfg.fused_pyramid!r}")
+    # the TPU's two fused forms differ only in how outputs leave VMEM
+    fused = cfg.fused_pyramid in ("pallas", "pallas_hbm")
     s_ = cfg.scales_per_octave
-    n_oct = cfg.num_octaves_for(*img.shape)
+    n_oct = cfg.num_octaves_for(*img.shape[-2:])
     base = initial_level(img, cfg)
     out = []
     for _ in range(n_oct):
-        gauss = torch.stack(octave_levels(base, cfg))
-        dog = gauss[1:] - gauss[:-1]
-        samp = gauss[1:s_ + 1]
-        # bf16 scores only rank candidates; refinement reads the f32 DoG
-        sdog = dog.to(torch.bfloat16) if cfg.score_dtype == "bf16" else dog
-        out.append((samp, dog, extrema_score(sdog, cfg)))
-        base = downsample2(samp[s_ - 1])   # level S carries 2x sigma0 blur
+        if fused and min(base.shape[-2:]) >= 64:
+            samp, dog, score = k3.fused_octave(base, cfg)
+        else:
+            gauss = torch.stack(octave_levels(base, cfg), -3)
+            dog = gauss[..., 1:, :, :] - gauss[..., :-1, :, :]
+            samp = gauss[..., 1:s_ + 1, :, :]
+            # bf16 scores only rank candidates; refinement reads the f32 DoG
+            sdog = dog.to(torch.bfloat16) if cfg.score_dtype == "bf16" else dog
+            score = extrema_score(sdog, cfg)
+        out.append((samp, dog, score))
+        base = downsample2(samp[..., s_ - 1, :, :])   # level S: 2x sigma0 blur
     return out
 
 
-def extract(img: torch.Tensor, cfg: SiftConfig = SiftConfig()) -> SiftFeatures:
-    """SIFT features of a [H, W] grayscale image in [0, 1].
-
-    Returns a SiftFeatures buffer of static capacity cfg.total_kpts.
-    """
-    pin_f32()
+def _features(planes, cfg: SiftConfig) -> SiftFeatures:
+    """Detection onwards for one frame from its octaves' planes."""
     parts = []
-    for oi, (samp, dog, score) in enumerate(_octave_planes(img, cfg)):
+    for oi, (samp, dog, score) in enumerate(planes):
         kps = detect_from_score(dog, score, oi, cfg)
         # keypoints live on DoG levels 1..S, the sampler-level stack
         hist = orientation_histograms(samp, kps, cfg, level_base=1)
@@ -110,10 +115,35 @@ def extract(img: torch.Tensor, cfg: SiftConfig = SiftConfig()) -> SiftFeatures:
     return _topk(feats, cfg.total_kpts)
 
 
-def extract_batch(imgs: torch.Tensor, cfg: SiftConfig = SiftConfig()) -> SiftFeatures:
-    """Extraction over a [B, H, W] batch of frames, one frame at a time.
+def extract(img, cfg: SiftConfig = SiftConfig(), *, device=None) -> SiftFeatures:
+    """SIFT features of a [H, W] grayscale image in [0, 1].
 
-    Fields carry a leading [B] axis, as the reference's `vmap` gives.
+    `img` is a tensor, which stays on its device, or a numpy array, which
+    goes to `device` (default "cuda"; see `utils/device.py`).  Returns a
+    SiftFeatures buffer of static capacity cfg.total_kpts.
     """
-    per_frame = [extract(im, cfg) for im in imgs]
+    pin_f32()
+    img = as_input(img, device)
+    if img.ndim != 2:
+        raise ValueError(f"extract takes one [H, W] image, got {tuple(img.shape)}")
+    return _features(_octave_planes(img, cfg), cfg)
+
+
+def extract_batch(imgs, cfg: SiftConfig = SiftConfig(), *,
+                  device=None) -> SiftFeatures:
+    """Extraction over a [B, H, W] batch of frames.
+
+    The pyramid of every octave is built for all frames at once (one K3
+    launch per octave on the fused path); detection onwards runs frame by
+    frame.  Each frame's features equal `extract` of that frame.  Fields
+    carry a leading [B] axis, as the reference's `vmap` gives.  `device`
+    as for `extract`.
+    """
+    pin_f32()
+    imgs = as_input(imgs, device)
+    if imgs.ndim != 3:
+        raise ValueError(f"extract_batch takes a [B, H, W] batch, got {tuple(imgs.shape)}")
+    planes = _octave_planes(imgs, cfg)
+    per_frame = [_features([tuple(p[b] for p in octave) for octave in planes], cfg)
+                 for b in range(imgs.shape[0])]
     return SiftFeatures(*(torch.stack(xs, 0) for xs in zip(*per_frame)))

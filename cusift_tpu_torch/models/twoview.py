@@ -2,7 +2,7 @@
 homography part of `cusift_tpu/models/twoview.py`).
 
 This is the port's main path: both extractions run the gradient sampler
-(K1) on every octave, and the matcher runs the fused top-2 (K2).
+(K1) on every octave by default, and the matcher runs the fused top-2 (K2).
 """
 
 from __future__ import annotations
@@ -11,10 +11,10 @@ from typing import NamedTuple
 
 import torch
 
-from cusift_tpu.config import MatchConfig, RansacConfig, SiftConfig
-
+from ..config import MatchConfig, RansacConfig, SiftConfig
 from ..ops.match import Matches, match
 from ..ops.ransac import HomographyResult, find_homography
+from ..utils.device import as_input
 from .sift import SiftFeatures, extract
 
 
@@ -47,17 +47,20 @@ def mask_to_content(f: SiftFeatures, content, border: int) -> SiftFeatures:
     return f._replace(valid=valid)
 
 
-def match_pair(img_a: torch.Tensor, img_b: torch.Tensor,
+def match_pair(img_a, img_b,
                sift_cfg: SiftConfig = SiftConfig(),
                match_cfg: MatchConfig = MatchConfig(),
                ransac_cfg: RansacConfig = RansacConfig(),
                generator: torch.Generator | None = None,
-               content_a=None, content_b=None) -> TwoViewResult:
+               content_a=None, content_b=None, *, device=None) -> TwoViewResult:
     """Full grayscale pair pipeline -> features, matches, homography.
 
+    The images are tensors, which stay on their device, or numpy arrays,
+    which go to `device` (default "cuda"; see `utils/device.py`).
     content_a/content_b: optional (h, w) of the true image content when
     the inputs are tier-padded (see `mask_to_content`).
     """
+    img_a, img_b = as_input(img_a, device), as_input(img_b, device)
     fa = mask_to_content(extract(img_a, sift_cfg), content_a, sift_cfg.border)
     fb = mask_to_content(extract(img_b, sift_cfg), content_b, sift_cfg.border)
     m = match(fa.desc, fa.valid, fb.desc, fb.valid, match_cfg)

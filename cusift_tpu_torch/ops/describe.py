@@ -2,21 +2,21 @@
 `cusift_tpu/ops/describe.py`).
 
 Each (keypoint, orientation) slot samples a fixed G x G grid in its
-rotated frame (through kernel K1), so the spatial trilinear weights are a
-static [G^2, 16] matrix; only the 8-way orientation binning depends on the
-data.
+rotated frame, so the spatial trilinear weights are a static [G^2, 16]
+matrix; only the 8-way orientation binning depends on the data.  The
+sampling goes through kernel K1, or, with `sampler="fused"`, kernel K5
+samples, bins and contracts in one pass.
 """
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from cusift_tpu.config import SiftConfig
-
+from ..config import SiftConfig
+from ..kernels import sampler as k
 from .keypoints import Keypoints, top_indices
 from .sampling import sample_grad_pair
 
@@ -82,10 +82,6 @@ def descriptors(gauss: torch.Tensor, slots: Slots,
     gauss: [L, H, W] blurred levels; plane i is Gaussian level
     i + level_base.  Returns (desc [N, 128], slot_valid [N]).
     """
-    if cfg.sampler in ("fused", "separable"):
-        raise NotImplementedError(
-            f"sampler={cfg.sampler!r} is not ported (ROADMAP queue 2: K5 "
-            "sample_desc_raw)")
     g, d, nb = cfg.desc_grid, cfg.desc_width, cfg.desc_bins
     dev = gauss.device
     coords, w_spatial, gw = (torch.as_tensor(a, device=dev)
@@ -105,20 +101,17 @@ def descriptors(gauss: torch.Tensor, slots: Slots,
     xs = slots.xo[:, None] + u * ct[:, None] - v * st[:, None]
     ys = slots.yo[:, None] + u * st[:, None] + v * ct[:, None]
 
-    dx, dy, inb = sample_grad_pair(gauss, lvl, ys, xs, method=cfg.sampler)
-    mag = torch.sqrt(dx * dx + dy * dy)
-    # gradient direction in the keypoint frame, y-up angle convention
-    ang = th[:, None] - torch.atan2(dy, dx)
-    w = mag * gw[None, :] * inb                                # [N, S]
-
-    fbin = torch.remainder(ang / (2.0 * math.pi) * nb, nb)
-    bins = torch.arange(nb, dtype=w.dtype, device=dev)
-    dist = (fbin[..., None] - bins).abs()                      # [N, S, nb]
-    dist = torch.minimum(dist, nb - dist)
-    obin = torch.clamp(1.0 - dist, min=0.0)
-    contrib = obin * w[..., None]
-    desc = torch.einsum("sc,ksb->kcb", w_spatial, contrib)     # [N, 16, 8]
-    desc = desc.reshape(n, d * d * nb)
+    if cfg.sampler == "fused":
+        wv = gw[None, :].expand(n, -1).contiguous()
+        raw = k.sample_desc_raw(gauss.contiguous(), lvl.to(torch.int32).contiguous(),
+                                ys.contiguous(), xs.contiguous(), th.contiguous(),
+                                wv, w_spatial, nb)                  # [N, nb, 16]
+        desc = raw.transpose(1, 2).reshape(n, d * d * nb)
+    else:
+        dx, dy, inb = sample_grad_pair(gauss, lvl, ys, xs, method=cfg.sampler)
+        contrib = k.descriptor_contrib(dx, dy, inb, th, gw[None, :], nb)
+        desc = torch.einsum("sc,ksb->kcb", w_spatial, contrib)  # [N, 16, 8]
+        desc = desc.reshape(n, d * d * nb)
 
     # normalise -> clip -> renormalise (Lowe)
     norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)

@@ -12,40 +12,41 @@ from __future__ import annotations
 
 import torch
 
-from cusift_tpu.config import SiftConfig
-
+from ..config import SiftConfig
 from .keypoints import Keypoints, top_indices
 from .mat3 import solve3
 
 
 def _extrema_mask(dog: torch.Tensor, prefilter: float) -> torch.Tensor:
-    """[S, H, W] bool: strict 26-neighbour extrema of dog[1:S+1]."""
+    """[..., S, H, W] bool: 26-neighbour extrema of dog[..., 1:S+1, :, :]."""
     def _win(x, op):
-        x = op(op(x[:-2], x[1:-1]), x[2:])                     # scale axis
-        x = op(op(x[:, :-2], x[:, 1:-1]), x[:, 2:])            # rows
-        return op(op(x[:, :, :-2], x[:, :, 1:-1]), x[:, :, 2:])  # cols
+        x = op(op(x[..., :-2, :, :], x[..., 1:-1, :, :]), x[..., 2:, :, :])  # scale
+        x = op(op(x[..., :-2, :], x[..., 1:-1, :]), x[..., 2:, :])          # rows
+        return op(op(x[..., :-2], x[..., 1:-1]), x[..., 2:])                 # cols
 
     wmax = _win(dog, torch.maximum)
     wmin = _win(dog, torch.minimum)
-    centre = dog[1:-1, 1:-1, 1:-1]
+    centre = dog[..., 1:-1, 1:-1, 1:-1]
     # centre equals the window max/min iff it is >= / <= all 26
     # neighbours; plateau ties must also clear the prefilter
     is_max = (centre >= wmax) & (centre > prefilter)
     is_min = (centre <= wmin) & (centre < -prefilter)
-    s, h, w = dog.shape
-    mask = torch.zeros((s - 2, h, w), dtype=torch.bool, device=dog.device)
-    mask[:, 1:-1, 1:-1] = is_max | is_min
+    s, h, w = dog.shape[-3:]
+    mask = torch.zeros(dog.shape[:-3] + (s - 2, h, w), dtype=torch.bool,
+                       device=dog.device)
+    mask[..., 1:-1, 1:-1] = is_max | is_min
     return mask
 
 
 def extrema_score(dog: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
-    """[S, H, W] candidate score: |DoG| at prefiltered extrema, else -inf.
+    """[..., S, H, W] candidate score of a [..., S+2, H, W] DoG stack:
+    |DoG| at prefiltered extrema, else -inf.
 
     Keeps the DoG's dtype (f32, or bf16 for `score_dtype="bf16"`).
     """
     prefilter = 0.5 * cfg.contrast_thresh / cfg.scales_per_octave
     mask = _extrema_mask(dog, prefilter)
-    mid = dog[1:-1].abs()
+    mid = dog[..., 1:-1, :, :].abs()
     return torch.where(mask, mid, torch.full_like(mid, -torch.inf))
 
 

@@ -3,8 +3,9 @@
 The reference's `conv_backend` values "vpu", "mxu" and "mxu2" are three
 TPU layouts of one correlation with the same taps; here one form serves
 all of them: reflect-101 padding plus a one-dimensional `conv2d` per
-axis, rows first.  The float32 pin (`utils/precision.py`) keeps cuDNN out
-of TF32, which would break the reference's 1e-5 pyramid parity.
+axis, rows first, over any leading batch axes.  The float32 pin
+(`utils/precision.py`) keeps cuDNN out of TF32, which would break the
+reference's 1e-5 pyramid parity.
 """
 
 from __future__ import annotations
@@ -56,7 +57,13 @@ def _conv1d(img: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     k = torch.as_tensor(taps, dtype=img.dtype, device=img.device)
     weight = k.view(1, 1, -1, 1) if axis % img.ndim == img.ndim - 2 \
         else k.view(1, 1, 1, -1)
-    return F.conv2d(x, weight).reshape(img.shape)
+    if x.device.type == "cpu" and x.shape[0] > 1:
+        # oneDNN picks its algorithm by batch size, so a frame's result
+        # would depend on the batch it came in; convolve frame by frame
+        out = torch.cat([F.conv2d(xi, weight) for xi in x.split(1)])
+    else:
+        out = F.conv2d(x, weight)
+    return out.reshape(img.shape)
 
 
 def blur(img: torch.Tensor, sigma: float, radius: int | None = None,

@@ -13,8 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from cusift_tpu.config import MatchConfig
-
+from ..config import MatchConfig
 from ..kernels import matcher as k2
 from ..utils.precision import pin_f32
 

@@ -1,9 +1,11 @@
 """Orientation assignment from fixed-grid gradient histograms (twin of
 `cusift_tpu/ops/orientation.py`).
 
-Every keypoint samples a fixed G x G grid over its circular support
-(through kernel K1), soft-assigns angles to a 36-bin histogram, and keeps
-up to `max_orientations` peaks as static orientation slots.
+Every keypoint samples a fixed G x G grid over its circular support,
+soft-assigns angles to a 36-bin histogram, and keeps up to
+`max_orientations` peaks as static orientation slots.  The sampling goes
+through kernel K1 by default and K6 with `sampler="separable"`; with
+`sampler="fused"` kernel K4 samples and bins in one pass.
 """
 
 from __future__ import annotations
@@ -13,8 +15,8 @@ import math
 import numpy as np
 import torch
 
-from cusift_tpu.config import SiftConfig
-
+from ..config import SiftConfig
+from ..kernels import sampler as k
 from .keypoints import Keypoints
 from .sampling import sample_grad_grid
 
@@ -41,10 +43,6 @@ def orientation_histograms(gauss: torch.Tensor, kps: Keypoints,
     gauss: [L, H, W] blurred levels of this octave; plane i is Gaussian
     level i + level_base.
     """
-    if cfg.sampler in ("fused", "separable"):
-        raise NotImplementedError(
-            f"sampler={cfg.sampler!r} is not ported (ROADMAP queue 2: K4 "
-            "sample_ori_hist, K6 sample_grad_patches_sep)")
     g = cfg.ori_grid
     nb = cfg.ori_bins
     dev = gauss.device
@@ -61,20 +59,19 @@ def orientation_histograms(gauss: torch.Tensor, kps: Keypoints,
     r2 = (offs[None, :, 0] ** 2 + offs[None, :, 1] ** 2) * (cfg.ori_radius_factor ** 2)
     wgt = torch.exp(-r2 / (2.0 * cfg.ori_sigma_factor ** 2))
     wgt = wgt * (r2 <= cfg.ori_radius_factor ** 2)             # circular mask
+    wv = wgt * kps.valid[:, None]                              # [K, S]
 
-    dx, dy, inb = sample_grad_grid(gauss, lvl, ys_rows, xs_cols,
-                                   method=cfg.sampler)
-    mag = torch.sqrt(dx * dx + dy * dy)
-    ang = torch.atan2(dy, dx)                                  # [-pi, pi]
-    w = mag * wgt * inb * kps.valid[:, None]                   # [K, S]
-
-    # soft 2-bin assignment: weight toward bin b is max(0, 1 - circ_dist)
-    fbin = torch.remainder(ang / (2.0 * math.pi) * nb, nb)     # [K, S]
-    bins = torch.arange(nb, dtype=w.dtype, device=dev)
-    dist = (fbin[..., None] - bins).abs()                      # [K, S, nb]
-    dist = torch.minimum(dist, nb - dist)
-    onehot = torch.clamp(1.0 - dist, min=0.0)
-    hist = torch.einsum("ks,ksb->kb", w, onehot)
+    if cfg.sampler == "fused":
+        n = ys_rows.shape[0]
+        ys = ys_rows[:, :, None].expand(n, g, g).reshape(n, -1)
+        xs = xs_cols[:, None, :].expand(n, g, g).reshape(n, -1)
+        hist = k.sample_ori_hist(gauss.contiguous(), lvl.to(torch.int32).contiguous(),
+                                 ys, xs, wv.contiguous(), nb)
+    else:
+        dx, dy, inb = sample_grad_grid(gauss, lvl, ys_rows, xs_cols,
+                                       method=cfg.sampler)
+        # soft 2-bin assignment: weight toward bin b is max(0, 1 - circ_dist)
+        hist = k.orientation_bins(dx, dy, inb, wv, nb)
     return _smooth_hist(hist)
 
 

@@ -1,22 +1,23 @@
 """Gaussian scale-space levels (twin of `cusift_tpu/ops/pyramid.py`).
 
 Only the "chain" build (incremental blurs) is ported; the levels of an
-octave are returned as a list of [H, W] tensors, as in the reference.
+octave are returned as a list of [H, W] tensors, as in the reference, or
+of [B, H, W] tensors for a batch of frames.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cusift_tpu.config import SiftConfig
-
+from ..config import SiftConfig
 from .gaussian import blur, upsample2
 
 
 def initial_level(img: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
-    """Octave-0 base: optional 2x upsample + blur up to sigma0."""
-    if img.ndim != 2:
-        raise ValueError("one [H, W] image; batch at the call site")
+    """Octave-0 base of a [H, W] image or a [B, H, W] batch: optional 2x
+    upsample + blur up to sigma0."""
+    if img.ndim not in (2, 3):
+        raise ValueError(f"a [H, W] image or a [B, H, W] batch, got {tuple(img.shape)}")
     img = img.to(torch.float32)
     if cfg.upscale:
         base = upsample2(img)

@@ -15,8 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from cusift_tpu.config import RansacConfig
-
+from ..config import RansacConfig
 from ..utils.precision import pin_f32
 from .geometry import apply_homography, solve_homography
 

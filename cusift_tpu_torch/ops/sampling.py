@@ -1,28 +1,28 @@
 """Batched bilinear gradient sampling (twin of `cusift_tpu/ops/sampling.py`).
 
-`sample_grad_pair` dispatches like the reference's `method="auto"`: the
-default goes through kernel K1 (`kernels/sampler.py`), which launches the
-CUDA kernel for a CUDA tensor and takes its plain torch version for a CPU
-tensor; `method="xla"` selects the plain version (gradient planes + a
-4-corner gather) on any device, as in the reference.
+`sample_grad_pair` takes kernel K1 (`kernels/sampler.py`) for every method
+but "xla", which selects the plain version (gradient planes + a 4-corner
+gather) on any device, as in the reference.  The reference's "fused" and
+"separable" reach its XLA gather here; K1 computes the same function.
+`sample_grad_grid` takes kernel K6 for "separable".  A kernel wrapper
+launches its CUDA kernel for a CUDA tensor and takes its plain version
+for a CPU tensor.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels import sampler as k1
+from ..kernels import sampler as k
 from ..kernels.sampler import bilinear_sample_pair
 
 __all__ = ["bilinear_sample_pair", "sample_grad_pair", "sample_grad_grid"]
 
+METHODS = ("auto", "pallas", "fused", "separable", "xla")
+
 
 def _check_method(method: str) -> None:
-    if method in ("fused", "separable"):
-        raise NotImplementedError(
-            f"sampler={method!r} is not ported (ROADMAP queue 2: K4-K6, "
-            "sample_ori_hist / sample_desc_raw / sample_grad_patches_sep)")
-    if method not in ("auto", "pallas", "xla"):
+    if method not in METHODS:
         raise ValueError(f"unknown sampler {method!r}")
 
 
@@ -36,9 +36,9 @@ def sample_grad_pair(gauss: torch.Tensor, lvl: torch.Tensor,
     """
     _check_method(method)
     if method == "xla":
-        return k1.sample_grad_patches_plain(gauss, lvl, ys, xs)
-    return k1.sample_grad_patches(gauss.contiguous(), lvl.to(torch.int32).contiguous(),
-                                  ys.contiguous(), xs.contiguous())
+        return k.sample_grad_patches_plain(gauss, lvl, ys, xs)
+    return k.sample_grad_patches(gauss.contiguous(), lvl.to(torch.int32).contiguous(),
+                                 ys.contiguous(), xs.contiguous())
 
 
 def sample_grad_grid(gauss: torch.Tensor, lvl: torch.Tensor,
@@ -50,8 +50,12 @@ def sample_grad_grid(gauss: torch.Tensor, lvl: torch.Tensor,
     (dx, dy, inb) shaped [K, GR*GC] in row-major order.
     """
     _check_method(method)
-    k, gr = ys_rows.shape
+    if method == "separable":
+        return k.sample_grad_patches_sep(
+            gauss.contiguous(), lvl.to(torch.int32).contiguous(),
+            ys_rows.contiguous(), xs_cols.contiguous())
+    n, gr = ys_rows.shape
     gc = xs_cols.shape[1]
-    ys = ys_rows[:, :, None].expand(k, gr, gc).reshape(k, -1)
-    xs = xs_cols[:, None, :].expand(k, gr, gc).reshape(k, -1)
+    ys = ys_rows[:, :, None].expand(n, gr, gc).reshape(n, -1)
+    xs = xs_cols[:, None, :].expand(n, gr, gc).reshape(n, -1)
     return sample_grad_pair(gauss, lvl, ys, xs, method=method)

@@ -6,18 +6,24 @@ runs on its own:
 
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider --noconftest
 
-Tolerances: K1 atol 1e-5 on in-image samples (float32, same formula, FMA
-contraction only); K2 atol 1e-5 on the scores (float32 dot products of
-unit vectors in another summation order), and the index may differ only
-where the plain top-2 is a near tie.
+Tolerances: K1 and K6 atol 1e-5 on in-image samples (float32, same
+formula, FMA contraction only); K2 atol 1e-5 on the scores (float32 dot
+products of unit vectors in another summation order), and the index may
+differ only where the plain top-2 is a near tie; K3 atol 1e-5 on levels
+and DoG (float32 sums of another order), score masks equal on >= 99.99% of
+pixels; K4 and K5 1e-4 of the largest histogram value (sums over 144
+samples in another order, atan2f against torch's atan2).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cusift_tpu_torch import SiftConfig
 from cusift_tpu_torch.kernels import matcher as k2
+from cusift_tpu_torch.kernels import octave as k3
 from cusift_tpu_torch.kernels import sampler as k1
+from cusift_tpu_torch.ops.gaussian import blur
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +109,91 @@ def test_wrappers_reject_bad_inputs(dev):
     d = torch.zeros(4, 256, device=dev)
     with pytest.raises(ValueError):
         k2.top2(d, d, torch.ones(4, dtype=torch.bool, device=dev))  # D > 128
+
+
+def _points(rng, dev, L, H, W, N, S, spread):
+    """Levels, per-slot levels and sample points around random centres,
+    with some slots at the borders and outside the image."""
+    gauss = torch.from_numpy(rng.normal(size=(L, H, W)).astype(np.float32)).to(dev)
+    lvl = torch.from_numpy(rng.integers(-1, L + 1, N).astype(np.int32)).to(dev)
+    cy = rng.uniform(-10, H + 10, (N, 1))
+    cx = rng.uniform(-10, W + 10, (N, 1))
+    ys = cy + rng.uniform(-spread, spread, (N, S))
+    xs = cx + rng.uniform(-spread, spread, (N, S))
+    ys[:2, :4] = 0.0
+    xs[2:4, :4] = W - 1
+    as_t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return gauss, lvl, as_t(ys), as_t(xs)
+
+
+def _close_rel(got, ref, rel):
+    scale = ref.abs().max().clamp(min=1e-12)
+    torch.testing.assert_close(got / scale, ref / scale, atol=rel, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(1, 960, 1280), (3, 200, 131), (2, 64, 64)])
+def test_octave_kernel_matches_plain(dev, shape):
+    """K3 on one frame and on a batch (ragged tiles at 200x131)."""
+    rng = np.random.default_rng(4)
+    cfg = SiftConfig()
+    base = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+    base = blur(base, 1.2)                  # image-like smoothness
+    before = k3.launches
+    got = k3.fused_octave(base, cfg)
+    assert k3.launches == before + 1
+    ref = k3.fused_octave_plain(base, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    fin, rfin = torch.isfinite(got[2]), torch.isfinite(ref[2])
+    assert (fin == rfin).float().mean().item() >= 0.9999
+    both = fin & rfin
+    torch.testing.assert_close(got[2][both], ref[2][both], atol=1e-5, rtol=0)
+    singles = [k3.fused_octave(b.contiguous(), cfg) for b in base]
+    for i, one in enumerate(singles):
+        for a, b in zip(one, got):
+            assert torch.equal(a, b[i])
+
+
+@pytest.mark.parametrize("n,s", [(3072, 144), (77, 64)])
+def test_ori_hist_kernel_matches_plain(dev, n, s):
+    rng = np.random.default_rng(5)
+    gauss, lvl, ys, xs = _points(rng, dev, 3, 240, 320, n, s, 20.0)
+    wv = torch.from_numpy(rng.uniform(0, 1, (n, s)).astype(np.float32)).to(dev)
+    before = k1.ori_hist_launches
+    hist = k1.sample_ori_hist(gauss, lvl, ys, xs, wv, 36)
+    assert k1.ori_hist_launches == before + 1
+    ref = k1.sample_ori_hist_plain(gauss, lvl, ys, xs, wv, 36)
+    torch.cuda.synchronize()
+    _close_rel(hist, ref, 1e-4)
+    assert torch.equal(hist, k1.sample_ori_hist(gauss, lvl, ys, xs, wv, 36))
+
+
+@pytest.mark.parametrize("n,s", [(3840, 144), (45, 64)])
+def test_desc_raw_kernel_matches_plain(dev, n, s):
+    rng = np.random.default_rng(6)
+    gauss, lvl, ys, xs = _points(rng, dev, 3, 240, 320, n, s, 20.0)
+    wv = torch.from_numpy(rng.uniform(0, 1, (n, s)).astype(np.float32)).to(dev)
+    theta = torch.from_numpy(rng.uniform(0, 2 * np.pi, n).astype(np.float32)).to(dev)
+    wsp = torch.from_numpy(rng.uniform(0, 1, (s, 16)).astype(np.float32)).to(dev)
+    before = k1.desc_raw_launches
+    raw = k1.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, 8)
+    assert k1.desc_raw_launches == before + 1 and raw.shape == (n, 8, 16)
+    ref = k1.sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, wsp, 8)
+    torch.cuda.synchronize()
+    _close_rel(raw, ref, 1e-4)
+
+
+@pytest.mark.parametrize("n,gr,gc", [(3072, 12, 12), (33, 5, 7)])
+def test_sep_sampler_kernel_matches_plain(dev, n, gr, gc):
+    rng = np.random.default_rng(7)
+    gauss, lvl, ys, xs = _points(rng, dev, 3, 240, 320, n, max(gr, gc), 30.0)
+    ys_rows, xs_cols = ys[:, :gr].contiguous(), xs[:, :gc].contiguous()
+    before = k1.sep_launches
+    dx, dy, inb = k1.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols)
+    assert k1.sep_launches == before + 1 and dx.shape == (n, gr * gc)
+    rdx, rdy, rinb = k1.sample_grad_patches_sep_plain(gauss, lvl, ys_rows, xs_cols)
+    torch.cuda.synchronize()
+    assert torch.equal(inb, rinb)
+    torch.testing.assert_close(dx[rinb], rdx[rinb], atol=1e-5, rtol=0)
+    torch.testing.assert_close(dy[rinb], rdy[rinb], atol=1e-5, rtol=0)

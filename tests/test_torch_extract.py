@@ -114,11 +114,3 @@ def test_extract_batch_is_per_frame(test_image):
         for name, a, b in zip(one._fields, batch, one):
             assert torch.equal(a[i], b), name
 
-
-@pytest.mark.parametrize("kw", [dict(fused_pyramid="pallas"),
-                                dict(fused_pyramid="pallas_hbm"),
-                                dict(sampler="separable")])
-def test_unported_paths_raise(test_image, kw):
-    cfg = SiftConfig(max_kpts=64, max_kpts_per_octave=32, num_octaves=1, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsift.extract(_t(test_image[:64, :64]), cfg)

@@ -1,10 +1,16 @@
 """Package-level contracts of cusift_tpu_torch.
 
-* The port imports neither jax nor cv2 (checked in a fresh interpreter
-  that runs a tiny CPU match_pair): the machine with the GPU has neither.
+* The port imports neither jax, cv2 nor any module of the JAX package
+  `cusift_tpu` (checked in a fresh interpreter that runs a tiny CPU
+  match_pair, and in one that imports `chip_smoke` and every module of the
+  port): the machine with the GPU has neither jax nor cv2.
 * On CPU tensors the kernel wrappers take their plain versions and launch
-  nothing; on a device with no kernel they raise.
-* Config values whose path is not ported raise NotImplementedError.
+  nothing; on a device with no kernel they raise.  The opt-in samplers
+  ("fused", "separable") take the plain versions of K4-K6, which compute
+  the default sampler's function.
+* The entry points take numpy input: it goes to the GPU unless the caller
+  passes device="cpu", and without a GPU that is an error, not a quiet run
+  on the CPU.
 * The numpy converter round-trips the inter-stage buffers.
 * A missing nvcc is an error, not a fallback.
 """
@@ -18,17 +24,27 @@ import numpy as np
 import pytest
 import torch
 
-from cusift_tpu_torch import SiftConfig
+from cusift_tpu_torch import MatchConfig, RansacConfig, SiftConfig
 from cusift_tpu_torch.convert import from_numpy, to_numpy
+from cusift_tpu_torch.data.synthetic import warped_pair
 from cusift_tpu_torch.kernels import _build
 from cusift_tpu_torch.kernels import matcher as k2
+from cusift_tpu_torch.kernels import octave as k3
 from cusift_tpu_torch.kernels import sampler as k1
-from cusift_tpu_torch.models.sift import SiftFeatures, extract
+from cusift_tpu_torch.models.sift import SiftFeatures, extract, extract_batch
+from cusift_tpu_torch.models.twoview import match_pair
 from cusift_tpu_torch.ops.match import Matches, match
 
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
+
+_CHECK = """
+bad = sorted(m for m in sys.modules if m in ("jax", "jaxlib", "cv2", "cusift_tpu")
+             or m.startswith("cusift_tpu."))
+print("LOADED:", bad)
+sys.exit(1 if bad else 0)
+"""
 
 _SCRIPT = """
 import sys, torch
@@ -41,26 +57,56 @@ res = match_pair(torch.from_numpy(a), torch.from_numpy(b),
                  SiftConfig(max_kpts=64, max_kpts_per_octave=32),
                  MatchConfig(), RansacConfig(num_hypotheses=32))
 assert res.feats_a.desc.shape == (64, 128)
-bad = sorted(m for m in ("jax", "jaxlib", "cv2") if m in sys.modules)
-print("LOADED:", bad)
-sys.exit(1 if bad else 0)
-"""
+""" + _CHECK
+
+# chip_smoke.py imports the port inside its phases: import it, every
+# module of the port, and run its CPU-safe frame builder
+_SMOKE_SCRIPT = """
+import importlib, pkgutil, sys, torch
+torch.set_num_threads(2)
+import chip_smoke
+import cusift_tpu_torch
+for mod in pkgutil.walk_packages(cusift_tpu_torch.__path__, "cusift_tpu_torch."):
+    importlib.import_module(mod.name)
+imgs, h_true = chip_smoke.bench_frames(torch.device("cpu"), h=48, w=64, pairs=1)
+assert imgs.shape == (2, 48, 64) and len(h_true) == 1
+""" + _CHECK
+
+
+def _run_fresh(script: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
 
 
 def test_port_imports_neither_jax_nor_cv2():
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = _run_fresh(_SCRIPT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED: []" in proc.stdout
 
 
+def test_chip_smoke_imports_nothing_of_jax():
+    proc = _run_fresh(_SMOKE_SCRIPT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED: []" in proc.stdout
+
+
+def _zero_counts():
+    k1.launches = k1.sep_launches = k1.ori_hist_launches = k1.desc_raw_launches = 0
+    k2.launches = k3.launches = 0
+
+
+def _counts():
+    return (k1.launches, k1.sep_launches, k1.ori_hist_launches,
+            k1.desc_raw_launches, k2.launches, k3.launches)
+
+
 def test_cpu_tensors_launch_no_kernel(test_image):
-    k1.launches = k2.launches = 0
+    _zero_counts()
     cfg = SiftConfig(max_kpts=64, max_kpts_per_octave=32, num_octaves=2)
     f = extract(torch.from_numpy(test_image[:96, :128].copy()), cfg)
     match(f.desc, f.valid, f.desc, f.valid)
-    assert k1.launches == 0 and k2.launches == 0
+    assert _counts() == (0,) * 6
 
 
 def test_wrappers_raise_on_a_device_without_kernel():
@@ -74,11 +120,57 @@ def test_wrappers_raise_on_a_device_without_kernel():
         k2.top2(d, d, torch.zeros(4, dtype=torch.bool, device="meta"))
 
 
-def test_fused_sampler_not_ported(test_image):
-    cfg = SiftConfig(max_kpts=64, max_kpts_per_octave=32, num_octaves=1,
-                     sampler="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        extract(torch.from_numpy(test_image[:64, :64].copy()), cfg)
+@pytest.mark.parametrize("sampler", ["fused", "separable"])
+def test_cpu_samplers_match_default(test_image, sampler):
+    """On the CPU the opt-in samplers take the plain versions of K4/K5 or
+    K6, which compute the default sampler's function: same keypoints and
+    orientations, descriptors within float32 summation order, and no
+    launch."""
+    kw = dict(max_kpts=128, max_kpts_per_octave=64, num_octaves=2)
+    img = torch.from_numpy(test_image[:128, :160].copy())
+    ref = extract(img, SiftConfig(**kw))
+    _zero_counts()
+    got = extract(img, SiftConfig(**kw, sampler=sampler))
+    assert _counts() == (0,) * 6
+    assert int(ref.valid.sum()) > 10
+    for name in ("x", "y", "sigma", "orientation", "valid"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    torch.testing.assert_close(got.desc, ref.desc, atol=1e-6, rtol=0)
+
+
+def test_numpy_input_runs_where_asked(test_image):
+    """numpy input with device="cpu" runs on the CPU at each entry point."""
+    cfg = SiftConfig(max_kpts=64, max_kpts_per_octave=32, num_octaves=2)
+    img = test_image[:96, :128]
+    f = extract(img, cfg, device="cpu")
+    assert f.desc.device.type == "cpu" and bool(f.valid.any())
+    ref = extract(torch.from_numpy(img.copy()), cfg)
+    assert all(torch.equal(a, b) for a, b in zip(f, ref))
+    fb = extract_batch(np.stack([img, img[::-1]]), cfg, device="cpu")
+    assert fb.desc.shape == (2, 64, 128)
+    assert all(torch.equal(a[0], b) for a, b in zip(fb, ref))
+    a, b, _ = warped_pair(96, 128, seed=2, blobs=60)
+    res = match_pair(a, b, cfg, MatchConfig(), RansacConfig(num_hypotheses=32),
+                     device="cpu")
+    assert res.homography.h.device.type == "cpu"
+
+
+def test_numpy_input_without_gpu_raises(monkeypatch, test_image):
+    """With no device given, numpy input goes to the GPU; without one that
+    is an error, never a quiet run on the CPU.  A tensor stays on its own
+    device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SiftConfig(max_kpts=64, max_kpts_per_octave=32, num_octaves=1)
+    img = test_image[:64, :64]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract(img, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_batch(img[None], cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        match_pair(img, img, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract(img, cfg, device="cuda")
+    assert extract(torch.from_numpy(img.copy()), cfg).desc.device.type == "cpu"
 
 
 def test_convert_round_trip():

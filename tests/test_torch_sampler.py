@@ -5,7 +5,7 @@ the JAX Pallas kernel run in interpret mode with f32 dots
 (`sample_grad_patches(..., interpret=True, bf16_dots=False)`) and against
 the JAX XLA path (`bilinear_sample_pair` over `image_gradients`), at
 atol 1e-5 on in-image samples: float32, same formula.  These are twins of
-tests/test_pallas_sampler.py.
+tests/test_pallas_sampler.py; K4-K6 are in test_torch_sampler_fused.py.
 """
 
 import jax.numpy as jnp
@@ -137,7 +137,9 @@ def test_levels_clip_and_outside_samples(rng):
 
 def test_grid_and_method_dispatch(rng):
     """sample_grad_grid expands row-major; method 'xla' is the plain path;
-    the opt-in TPU samplers are not ported."""
+    the reference's 'fused' and 'separable' sample pairs through K1 (its
+    XLA gather there computes the same function), and 'separable' grids
+    through K6."""
     gauss = torch.from_numpy(rng.normal(size=(2, 48, 64)).astype(np.float32))
     lvl = torch.tensor([0, 1, 1], dtype=torch.int32)
     ys_rows = torch.tensor([[5.5, 9.0, 20.2], [1.0, 2.0, 3.0], [40.0, 46.5, 47.0]])
@@ -149,5 +151,10 @@ def test_grid_and_method_dispatch(rng):
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     for method in ("fused", "separable"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsampling.sample_grad_pair(gauss, lvl, ys, xs, method=method)
+        pair = tsampling.sample_grad_pair(gauss, lvl, ys, xs, method=method)
+        grid = tsampling.sample_grad_grid(gauss, lvl, ys_rows, xs_cols, method=method)
+        for a, b, r in zip(pair, grid, ref):
+            assert torch.equal(a, r) and torch.equal(b, r)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        tsampling.sample_grad_pair(gauss, lvl, ys, xs, method="mxu")
+
