@@ -9,14 +9,18 @@ Phases (one line each; any failure raises and exits non-zero):
   3. K1 against its plain torch version at the octave-0 shape of the bench
      config (L=3, 960x1280, N=3840, S=144);
   4. K2 against its plain torch version at N = M = 6144, plus the
-     all-invalid, single-candidate and ragged-N cases;
+     all-invalid, single-candidate and ragged-N cases; its bound is the
+     function's 2*N*M*D at the TF32 tensor-core peak, with the f32 bound
+     and the time of the 3xTF32 algorithm's three products beside it;
   5. the two-view main path: `match_pair` on a 480x640 synthetic pair
      with the bench's SiftConfig (upscale, 6144 keypoints) and 1024 RANSAC
      hypotheses, checking the launch counts and the corner-transfer error
      against the true homography, then timing 10 pair runs;
   6. the all-zero image probe;
   7. K3 against its plain version on the octave-0 bases of the 8 bench
-     frames [8, 960, 1280] and on one [960, 1280] base;
+     frames [8, 960, 1280] and on one [960, 1280] base, then timed at the
+     four octave shapes the batch launches it on (960x1280 down to
+     120x160, 8 frames each) and summed per batch;
   8. K4 against its plain version at L=3x960x1280, N=3072, S=144;
   9. K5 against its plain version at N=3840, S=144;
  10. K6 against its plain version at N=3072 on 12x12 grids;
@@ -57,6 +61,7 @@ HIST_REL = 1e-4  # K4/K5: sums over 144 samples in another order, atan2f
 MAX_CORNER_ERR = 2.0   # px, the two-view drive's bound
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores (same)
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores (same)
 
 
 def log(phase: str, **fields) -> None:
@@ -113,10 +118,10 @@ def wall_ms(fn, runs: int, warmup: int = 2) -> list[float]:
     return times
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """Least time for the work: bytes over HBM rate vs f32 ops over peak."""
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> dict:
+    """Least time for the work: bytes over HBM rate vs ops over `peak`."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -241,10 +246,19 @@ def check_matcher(dev, gen: np.random.Generator, N=6144, M=6144) -> dict:
     bias = torch.where(tv, 0.0, -torch.inf)
     library_ms = time_ms(lambda: torch.topk(torch.addmm(bias, ta, tb.T), 2, dim=1),
                          "k2 library")
+    plan = k2._launch_plan(N, M, a.shape[1], k2._sm_count(dev.index))
     log("k2", shape=f"N{N},M{M},D128", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        library_ms=f"{library_ms:.4f}")
+        library_ms=f"{library_ms:.4f}", faster_than_library=ms < library_ms,
+        splits=plan["splits"], blocks=plan["blocks"])
+    moved = nbytes(ta, tb, tv, top, idx)
+    flops = 2.0 * N * M * a.shape[1]
+    # bound_ms: the function's own 2*N*M*D at the tensor-core peak the
+    # kernel uses; beside it the same work on the CUDA cores, and the
+    # 3xTF32 algorithm's three products per multiply-add (not a bound)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(nbytes(ta, tb, tv, top, idx), 2.0 * N * M * a.shape[1]))
+                **bound(moved, flops, TF32_FLOPS),
+                f32_bound_ms=bound(moved, flops)["bound_ms"],
+                tf32x3_ms=bound(moved, 3 * flops, TF32_FLOPS)["bound_ms"])
 
 
 def corner_error(h_est: np.ndarray, h_true: np.ndarray, h: int, w: int) -> float:
@@ -336,50 +350,73 @@ def bench_frames(dev, h=480, w=640, pairs=4):
     return torch.from_numpy(np.stack(frames)).to(dev), h_true
 
 
+def _check_k3(name, x, cfg) -> tuple[float, float]:
+    """K3 vs its plain version on base x: (max |err|, score mask agreement)."""
+    from cusift_tpu_torch.kernels import octave as k3
+
+    got = k3.fused_octave(x, cfg)
+    ref = k3.fused_octave_plain(x, cfg)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got[:2], ref[:2]))
+    fin, rfin = torch.isfinite(got[2]), torch.isfinite(ref[2])
+    agree = (fin == rfin).float().mean().item()
+    both = fin & rfin
+    serr = (got[2] - ref[2])[both].abs().max().item() if both.any() else 0.0
+    if not (err <= K3_ATOL and serr <= K3_ATOL and agree >= K3_MASK):
+        raise AssertionError(f"K3 {name}: max |err| {err}, score err {serr}, "
+                             f"score masks agree on {agree}")
+    log("k3", case=name, shape=tuple(x.shape), max_abs_err=max(err, serr),
+        mask_agree=f"{agree:.6f}", extrema=int(fin.sum()))
+    return max(err, serr), agree
+
+
 def check_octave(dev, imgs) -> dict:
     """K3 vs its plain version on the bench frames' octave-0 bases, batched
-    and single, and batched against per-frame launches."""
+    and single, and batched against per-frame launches; then each octave
+    the batch runs K3 on, checked and timed."""
     from cusift_tpu_torch import SiftConfig
     from cusift_tpu_torch.kernels import octave as k3
-    from cusift_tpu_torch.ops.gaussian import gaussian_taps
+    from cusift_tpu_torch.ops.gaussian import downsample2, gaussian_taps
     from cusift_tpu_torch.ops.pyramid import initial_level
 
     cfg = SiftConfig(**BENCH_SIFT, **FUSED)
     base = initial_level(imgs, cfg).contiguous()            # [8, 960, 1280]
-    worst, worst_mask = 0.0, 1.0
-    for name, x in (("batch", base), ("single", base[3].contiguous())):
-        got = k3.fused_octave(x, cfg)
-        ref = k3.fused_octave_plain(x, cfg)
-        torch.cuda.synchronize()
-        err = max((a - b).abs().max().item() for a, b in zip(got[:2], ref[:2]))
-        fin, rfin = torch.isfinite(got[2]), torch.isfinite(ref[2])
-        agree = (fin == rfin).float().mean().item()
-        both = fin & rfin
-        serr = (got[2] - ref[2])[both].abs().max().item() if both.any() else 0.0
-        if not (err <= K3_ATOL and serr <= K3_ATOL and agree >= K3_MASK):
-            raise AssertionError(f"K3 {name}: max |err| {err}, score err {serr}, "
-                                 f"score masks agree on {agree}")
-        worst, worst_mask = max(worst, err, serr), min(worst_mask, agree)
-        log("k3", case=name, shape=tuple(x.shape), max_abs_err=max(err, serr),
-            mask_agree=f"{agree:.6f}", extrema=int(fin.sum()))
+    errs = [_check_k3(name, x, cfg)
+            for name, x in (("batch", base), ("single", base[3].contiguous()))]
     batched = k3.fused_octave(base, cfg)
     for i in range(base.shape[0]):
         one = k3.fused_octave(base[i].contiguous(), cfg)
         if not all(torch.equal(a, b[i]) for a, b in zip(one, batched)):
             raise AssertionError(f"K3: batched frame {i} differs from its own launch")
-    ms = time_ms(lambda: k3.fused_octave(base, cfg), "k3", iters=10)
     plain_ms = time_ms(lambda: k3.fused_octave_plain(base, cfg), "k3 plain", iters=10)
-    b, h, w = base.shape
     s = cfg.scales_per_octave
     taps = [gaussian_taps(sd).shape[0] for sd in k3.level_sigmas(cfg)]
     pad = max(taps) // 2 + 1
-    moved = 4 * b * ((h + 2 * pad) * (w + 2 * pad) + (3 * s + 2) * h * w)
-    # two 1-D passes of FMAs per level, the DoG, and 3 ops per neighbour
-    flops = b * h * w * (4 * sum(taps) + (s + 2) + 3 * 27 * s)
-    log("k3", shape=f"B{b}x{h}x{w}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        ms_per_frame=f"{ms / b:.4f}", batch_bit_equal=True)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
-                mask_agree=worst_mask, **bound(moved, flops))
+    # the octaves the batch runs K3 on: each base is level S of the one
+    # before, decimated, down to the 64-px gate
+    per_octave = []
+    x = base
+    while min(x.shape[-2:]) >= 64:
+        b, h, w = x.shape
+        if per_octave:
+            errs.append(_check_k3(f"octave{len(per_octave)}", x, cfg))
+        ms = time_ms(lambda x=x: k3.fused_octave(x, cfg), f"k3 {h}x{w}", iters=10)
+        moved = 4 * b * ((h + 2 * pad) * (w + 2 * pad) + (3 * s + 2) * h * w)
+        # two 1-D passes of FMAs per level, the DoG, and 3 ops per neighbour
+        flops = b * h * w * (4 * sum(taps) + (s + 2) + 3 * 27 * s)
+        per_octave.append(dict(shape=[b, h, w], ms=ms, **bound(moved, flops)))
+        log("k3", shape=f"B{b}x{h}x{w}", ms=f"{ms:.4f}", ms_per_frame=f"{ms / b:.4f}",
+            bound_ms=f"{per_octave[-1]['bound_ms']:.4f}", card=json.dumps(smi_line()))
+        x = downsample2(k3.fused_octave(x, cfg)[0][:, s - 1])
+    batch_ms = sum(o["ms"] for o in per_octave)
+    batch_bound = sum(o["bound_ms"] for o in per_octave)
+    log("k3", octaves=len(per_octave), batch_ms_sum=f"{batch_ms:.4f}",
+        batch_bound_ms_sum=f"{batch_bound:.4f}", octave0_ms=f"{per_octave[0]['ms']:.4f}",
+        plain_ms=f"{plain_ms:.4f}", batch_bit_equal=True)
+    o0 = per_octave[0]
+    return dict(max_abs_err=max(e for e, _ in errs), ms=o0["ms"], plain_ms=plain_ms,
+                library_ms=None, mask_agree=min(a for _, a in errs), bound_ms=o0["bound_ms"], bound_by=o0["bound_by"],
+                octaves=per_octave, batch_ms_sum=batch_ms, batch_bound_ms_sum=batch_bound)
 
 
 def _rel_err(got, ref) -> float:
@@ -602,7 +639,7 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         nvcc_seconds=_build.build_seconds, sources=",".join(_build.SOURCES))
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     gen = np.random.default_rng(0)

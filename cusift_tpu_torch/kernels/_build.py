@@ -41,11 +41,13 @@ SIGNATURES = {
     # K5: gauss, lvl, ys, xs, theta, wv, w_spatial, raw, L, H, W, N, S, NB,
     #     CELLS, stream
     "cusift_sample_desc_raw": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
-    # K2: a, b, valid_b, top, idx, N, M, D, stream
-    "cusift_match_top2": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
-    # K3: padded, samp, dog, score, taps, radii, stride, nlev, R, B, H, W,
-    #     prefilter, stream
-    "cusift_fused_octave": ((_P,) * 6 + (_I,) * 6 + (_F, _P), _I),
+    # K2: a, b, valid_b, top, idx, part_top, part_idx, N, M, D, P,
+    #     cols_per_split, stream
+    "cusift_match_top2": ((_P,) * 7 + (_I,) * 5 + (_P,), _I),
+    # K3: padded, samp, dog, score, taps (host), radii (host), nlev, R, B,
+    #     H, W, band_rows, window_rows, vbuf_stride, smem_bytes, prefilter,
+    #     stream
+    "cusift_fused_octave": ((_P,) * 6 + (_I,) * 9 + (_F, _P), _I),
 }
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -99,9 +101,13 @@ def library() -> ctypes.CDLL:
                           for src, obj in zip(SOURCES, objs)])
         build_log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]])
         build_seconds = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(build_log)
         os.replace(tmp, out)
         for obj in objs:
             os.remove(obj)
+    elif out.with_suffix(".log").is_file():
+        # a cached library: its compile's ptxas lines are kept beside it
+        build_log = out.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -6,10 +6,13 @@ and the second-best s2 (the max with column i1 removed) of A @ B.T with
 invalid B columns at -inf.  The TPU kernel's VMEM cap on M
 (`ops/match.py:50-53`) does not apply: B is streamed through shared memory.
 
-What bounds it on the H100: f32 arithmetic on CUDA cores (2*N*M*D flops;
-TF32 tensor cores would change the scores).  The kernel is a tiled
-register-blocked GEMM that folds each tile into a running top-2 and never
-writes the [N, M] similarity; see the source's header.
+What bounds it on the H100: arithmetic (2*N*M*D flops).  The kernel runs
+on the TF32 tensor cores with each operand split into two TF32 words
+(3xTF32: three products per multiply-add), which keeps the scores within
+~1e-6 of f32; it folds each tile of A @ B.T into a running top-2 and never
+writes the [N, M] similarity.  The column range is cut into P splits so
+that a few hundred query rows still fill the card; `_launch_plan` picks P
+and a second pass merges the partial top-2s.  See the source's header.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 `top2_plain`, which is also what the tests and `chip_smoke.py` hold the
@@ -18,11 +21,47 @@ kernel against.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 
-launches = 0   # kernel launches made by `top2`
+launches = 0   # calls of `top2` that launched the kernel (both passes)
+
+BLOCK_ROWS = 128   # query rows per block (csrc/matcher.cu BM)
+BLOCK_COLS = 64    # B rows per streamed tile (csrc/matcher.cu BN)
+# cost of a block's A load and split, in B tiles, for `_launch_plan`
+_A_TILES = 2
+
+
+def _launch_plan(n: int, m: int, d: int, sms: int) -> dict:
+    """Grid of K2 for A [n, d] against B [m, d] on a card of `sms` SMs:
+    row blocks x P column splits.  P minimises waves x (tiles per split +
+    the A load) with one block per SM; ties go to the smaller P.  With P > 1 the wrapper
+    allocates [P, n] partial top-2s (`scratch_rows` = P * n) that the
+    second pass merges; with P == 1 the kernel writes the outputs."""
+    if n <= 0 or m <= 0 or not 0 < d <= 128 or sms <= 0:
+        raise ValueError(f"top2 plan: n={n}, m={m}, d={d}, sms={sms}")
+    row_blocks = -(-n // BLOCK_ROWS)
+    tiles = -(-m // BLOCK_COLS)
+    best = None
+    for p in range(1, tiles + 1):
+        per = -(-tiles // p)
+        splits = -(-tiles // per)          # no empty split
+        cost = -(-row_blocks * splits // sms) * (per + _A_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    _, splits, per = best
+    return dict(row_blocks=row_blocks, splits=splits,
+                cols_per_split=per * BLOCK_COLS,
+                grid=(row_blocks, splits), blocks=row_blocks * splits,
+                scratch_rows=splits * n if splits > 1 else 0)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def top2_plain(desc_a: torch.Tensor, desc_b: torch.Tensor,
@@ -64,12 +103,25 @@ def top2(desc_a: torch.Tensor, desc_b: torch.Tensor, valid_b: torch.Tensor):
     idx = torch.empty((n,), dtype=torch.int32, device=desc_a.device)
     if n == 0:
         return top, idx
+    if m == 0:
+        top.fill_(-torch.inf)
+        idx.zero_()
+        return top, idx
+    plan = _launch_plan(n, m, d, _sm_count(desc_a.device.index))
+    p = plan["splits"]
+    part_top = part_idx = None
+    if p > 1:
+        part_top = torch.empty((p, n, 2), dtype=torch.float32, device=desc_a.device)
+        part_idx = torch.empty((p, n), dtype=torch.int32, device=desc_a.device)
     lib = _build.library()
     with torch.cuda.device(desc_a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cusift_match_top2(desc_a.data_ptr(), desc_b.data_ptr(),
-                                    valid_b.data_ptr(), top.data_ptr(),
-                                    idx.data_ptr(), n, m, d, stream)
+        err = lib.cusift_match_top2(
+            desc_a.data_ptr(), desc_b.data_ptr(), valid_b.data_ptr(),
+            top.data_ptr(), idx.data_ptr(),
+            None if part_top is None else part_top.data_ptr(),
+            None if part_idx is None else part_idx.data_ptr(),
+            n, m, d, p, plan["cols_per_split"], stream)
     _build.check(err, "cusift_match_top2")
     launches += 1
     return top, idx

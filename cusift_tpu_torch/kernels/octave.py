@@ -9,8 +9,12 @@ the S+2 DoG planes, and the 26-neighbour extrema score of DoG levels
 base is one launch over all frames.  The TPU row tile, VMEM scratch and
 manual output DMA have no meaning on the GPU and are not carried over.
 
-What bounds it on the H100: the bytes of the 3S + 2 output planes; see the
-source's header for the design.
+What bounds it on the H100: the bytes of the 3S + 2 output planes, and in
+practice the shared-memory instructions of the blurs.  A block walks down
+a band of rows of one frame's 64-column strip, streaming the base through
+a window of rows in shared memory; both blur passes are register-blocked
+8 outputs to a thread with symmetric taps paired.  `_launch_plan` sets the
+geometry; see the source's header for the design.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 `fused_octave_plain`, the same direct-from-base formula in plain torch
@@ -37,6 +41,51 @@ launches = 0   # kernel launches made by `fused_octave`
 MAX_LEVELS = 8    # blurred levels S + 2 (csrc/octave.cu kMaxLevels)
 MAX_RADIUS = 32   # largest tap radius (csrc/octave.cu kMaxRadius)
 
+# csrc/octave.cu's geometry; `_launch_plan` sizes shared memory from it
+STRIP = 64               # output columns per block (kStrip)
+GROUP_ROWS = 8           # level rows per step down the band (kV)
+WINDOW_STRIDE = STRIP + 2 + 2 * MAX_RADIUS   # window row stride (kRS)
+LEV_STRIDE = 68          # kLS
+LEV_ROWS = 10            # ring of blurred level rows (kLevRows)
+BASE_ROWS = 24           # ring of level-0 rows (kBaseRows)
+MAX_SMEM = 232_448       # bytes of shared memory a block may use on the H100
+MAX_GROUPS = 16          # band of 8 * 16 - 2 = 126 rows at most
+MIN_FRAME_BLOCKS = 48    # blocks per frame the band height aims for
+
+
+def _launch_plan(b: int, h: int, w: int, nlev: int, r: int) -> dict:
+    """Geometry of K3 for a [b, h, w] base with nlev levels of radius <= r.
+
+    A block owns a STRIP-column strip and a band of `band_rows` output
+    rows of one frame; it computes the 1-px level halo around them, so
+    (band_rows + 2) / 8 groups of 8 level rows, from a window of 2r + 8
+    base rows that moves down 8 rows per group inside a buffer of 2r + 16
+    rows (shifted by 16 rows every second group).  Bands are as tall as
+    MAX_GROUPS allows while a frame still gives MIN_FRAME_BLOCKS blocks;
+    small octaves get short bands.  The row-blurred buffer's stride is 1
+    mod 32 (conflict-free horizontal reads) and covers the window.
+    Nothing but the grid depends on b, so each frame of a batch is
+    computed exactly as it would be alone.
+    """
+    if not (b >= 1 and h >= 1 and w >= 1 and 3 <= nlev <= MAX_LEVELS
+            and 0 <= r <= MAX_RADIUS):
+        raise ValueError(f"fused_octave plan: b={b} h={h} w={w} nlev={nlev} r={r}")
+    strips = -(-w // STRIP)
+    for groups in range(MAX_GROUPS, 0, -1):
+        band_rows = GROUP_ROWS * groups - 2
+        bands = -(-h // band_rows)
+        if strips * bands >= MIN_FRAME_BLOCKS:
+            break
+    window_rows = 2 * r + 2 * GROUP_ROWS
+    vbuf_stride = 32 * -(-(STRIP + 2 + 2 * r - 1) // 32) + 1
+    smem = 4 * (window_rows * WINDOW_STRIDE + nlev * GROUP_ROWS * vbuf_stride
+                + (nlev * LEV_ROWS + BASE_ROWS) * LEV_STRIDE)
+    if smem > MAX_SMEM:
+        raise ValueError(f"fused_octave plan: {smem} bytes of shared memory")
+    return dict(strip=STRIP, strips=strips, band_rows=band_rows, bands=bands,
+                groups=groups, window_rows=window_rows, vbuf_stride=vbuf_stride,
+                smem_bytes=smem, grid=(strips, bands, b))
+
 
 def level_sigmas(cfg: SiftConfig) -> list[float]:
     """Blur of levels 1..S+2 relative to the octave base (total sigma)."""
@@ -55,16 +104,17 @@ def fused_octave_plain(base: torch.Tensor, cfg: SiftConfig):
 
 
 @functools.cache
-def _tap_table(sigmas: tuple, device: torch.device):
-    """(taps [nlev, 2R+1] f32, radii [nlev] int32) on `device`, and R."""
+def _tap_table(sigmas: tuple):
+    """Host (taps [nlev, R+1] f32, radii [nlev] int32) and R: row i holds
+    level i's first r_i + 1 taps (the outer..inner pair taps, then the
+    centre); the kernel takes them as a launch parameter."""
     taps = [gaussian_taps(sd) for sd in sigmas]
     radii = [(t.shape[0] - 1) // 2 for t in taps]
     r = max(radii)
-    table = np.zeros((len(taps), 2 * r + 1), np.float32)
-    for i, t in enumerate(taps):
-        table[i, :t.shape[0]] = t
-    return (torch.from_numpy(table).to(device),
-            torch.tensor(radii, dtype=torch.int32, device=device), r)
+    table = np.zeros((len(taps), r + 1), np.float32)
+    for i, (t, ri) in enumerate(zip(taps, radii)):
+        table[i, :ri + 1] = t[:ri + 1]
+    return table, np.asarray(radii, np.int32), r
 
 
 def fused_octave(base: torch.Tensor, cfg: SiftConfig):
@@ -86,7 +136,7 @@ def fused_octave(base: torch.Tensor, cfg: SiftConfig):
                          f"[B, H, W] tensor, got {base.dtype} {tuple(base.shape)}")
     s = cfg.scales_per_octave
     nlev = s + 2
-    taps, radii, r = _tap_table(tuple(level_sigmas(cfg)), base.device)
+    taps, radii, r = _tap_table(tuple(level_sigmas(cfg)))
     h, w = base.shape[-2:]
     pad = r + 1                       # +1: the extrema test needs a DoG halo
     if not 3 <= nlev <= MAX_LEVELS or r > MAX_RADIUS:
@@ -98,6 +148,7 @@ def fused_octave(base: torch.Tensor, cfg: SiftConfig):
                          f"reflect pad of {pad}")
     frames = base.reshape(-1, 1, h, w)
     b = frames.shape[0]
+    plan = _launch_plan(b, h, w, nlev, r)
     padded = F.pad(frames, (pad, pad, pad, pad), mode="reflect").contiguous()
     samp = torch.empty((b, s, h, w), dtype=torch.float32, device=base.device)
     dog = torch.empty((b, nlev, h, w), dtype=torch.float32, device=base.device)
@@ -108,8 +159,9 @@ def fused_octave(base: torch.Tensor, cfg: SiftConfig):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cusift_fused_octave(
             padded.data_ptr(), samp.data_ptr(), dog.data_ptr(), score.data_ptr(),
-            taps.data_ptr(), radii.data_ptr(), taps.shape[1], nlev, r, b, h, w,
-            prefilter, stream)
+            taps.ctypes.data, radii.ctypes.data, nlev, r, b, h, w,
+            plan["band_rows"], plan["window_rows"], plan["vbuf_stride"],
+            plan["smem_bytes"], prefilter, stream)
     _build.check(err, "cusift_fused_octave")
     launches += 1
     if base.ndim == 2:

@@ -96,6 +96,55 @@ def test_matcher_kernel_edge_rows(dev):
     assert int(idx[0]) == 20 and float(top[0, 0]) == float(top[0, 1])
 
 
+def _check_top2(top, idx, rtop, ridx):
+    fin = torch.isfinite(rtop)
+    assert torch.equal(fin, torch.isfinite(top))
+    assert torch.equal(top[~fin], rtop[~fin])
+    torch.testing.assert_close(top[fin], rtop[fin], atol=1e-5, rtol=0)
+    near_tie = (rtop[:, 0] - rtop[:, 1]) < 1e-5
+    assert bool(((idx == ridx) | near_tie).all())
+
+
+@pytest.mark.parametrize("n,m,d", [(6144, 40, 128), (1, 6144, 128), (1000, 6144, 100),
+                                   (300, 20000, 128)])
+def test_matcher_kernel_split_plans(dev, n, m, d):
+    """M under one column split, N = 1 (many splits), D = 100 and a long
+    scan, each against the plain version; two runs are bit-identical."""
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(_unit(rng, n, d)).to(dev)
+    b = torch.from_numpy(_unit(rng, m, d)).to(dev)
+    vb = torch.from_numpy(rng.random(m) > 0.2).to(dev)
+    before = k2.launches
+    top, idx = k2.top2(a, b, vb)
+    assert k2.launches == before + 1
+    _check_top2(top, idx, *k2.top2_plain(a, b, vb))
+    top2, idx2 = k2.top2(a, b, vb)
+    assert torch.equal(top, top2) and torch.equal(idx, idx2)
+
+
+def test_matcher_kernel_tie_across_splits(dev):
+    """A best score duplicated in the first and the last column split:
+    i1 is the lower index and s2 equals s1."""
+    n, m = 300, 6144
+    plan = k2._launch_plan(n, m, 128, k2._sm_count(dev.index))
+    assert plan["splits"] > 1
+    rng = np.random.default_rng(9)
+    a, b = _unit(rng, n), _unit(rng, m)
+    lo, hi = 5, m - 3
+    assert lo < plan["cols_per_split"] <= (plan["splits"] - 1) * plan["cols_per_split"] <= hi
+    b[hi] = b[lo]
+    a[0] = b[lo]
+    a[1] = b[lo]
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    vb = torch.ones(m, dtype=torch.bool, device=dev)
+    top, idx = k2.top2(ta, tb, vb)
+    assert int(idx[0]) == lo and float(top[0, 0]) == float(top[0, 1])
+    vb[lo] = False
+    top, idx = k2.top2(ta, tb, vb)
+    assert int(idx[1]) == hi and float(top[1, 1]) < float(top[1, 0])
+    _check_top2(top, idx, *k2.top2_plain(ta, tb, vb))
+
+
 def test_wrappers_reject_bad_inputs(dev):
     g = torch.zeros(2, 16, 16, device=dev)
     lvl = torch.zeros(4, dtype=torch.int32, device=dev)
@@ -197,3 +246,40 @@ def test_sep_sampler_kernel_matches_plain(dev, n, gr, gc):
     assert torch.equal(inb, rinb)
     torch.testing.assert_close(dx[rinb], rdx[rinb], atol=1e-5, rtol=0)
     torch.testing.assert_close(dy[rinb], rdy[rinb], atol=1e-5, rtol=0)
+
+
+def _big_radius_sigma0(r=32):
+    """A sigma0 whose widest level blur has tap radius r (S = 3)."""
+    for sigma0 in np.arange(2.5, 2.8, 0.01):
+        cfg = SiftConfig(sigma0=float(sigma0))
+        if k3._tap_table(tuple(k3.level_sigmas(cfg)))[2] == r:
+            return cfg
+    raise AssertionError(f"no sigma0 gives radius {r}")
+
+
+@pytest.mark.parametrize("case", ["batch8_480x640", "ragged_70x200", "levels8", "radius32"])
+def test_octave_kernel_plans(dev, case):
+    """K3 at the batch's octave-1 shape, a ragged strip, 8 levels and the
+    largest radius: atol 1e-5, masks on >= 99.99%, batch == singles."""
+    shape, cfg = {
+        "batch8_480x640": ((8, 480, 640), SiftConfig()),
+        "ragged_70x200": ((2, 70, 200), SiftConfig()),
+        "levels8": ((2, 160, 200), SiftConfig(scales_per_octave=6)),
+        "radius32": ((2, 96, 136), _big_radius_sigma0()),
+    }[case]
+    rng = np.random.default_rng(10)
+    base = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+    base = blur(base, 1.2)
+    got = k3.fused_octave(base, cfg)
+    ref = k3.fused_octave_plain(base, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    fin, rfin = torch.isfinite(got[2]), torch.isfinite(ref[2])
+    assert (fin == rfin).float().mean().item() >= 0.9999
+    both = fin & rfin
+    torch.testing.assert_close(got[2][both], ref[2][both], atol=1e-5, rtol=0)
+    for i in range(shape[0]):
+        one = k3.fused_octave(base[i].contiguous(), cfg)
+        for a, b in zip(one, got):
+            assert torch.equal(a, b[i])

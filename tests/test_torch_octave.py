@@ -9,6 +9,10 @@ extrema): levels and DoG within atol 1e-5 (float32, the same
 direct-from-base taps summed in another order), score masks equal and
 values within 1e-5.  The port's batch equals its single-frame calls bit
 for bit.
+
+The card kernel's geometry comes from `_launch_plan`; it is checked here
+for every level count and radius the kernel takes.  The kernel itself
+runs only on the card (`tests/test_torch_cuda.py`, `chip_smoke.py`).
 """
 
 import jax.numpy as jnp
@@ -83,3 +87,50 @@ def test_fused_octave_rejects_small_or_odd_input():
     samp, dog, score = k3.fused_octave(torch.rand(2, 41, 50), SiftConfig())
     assert samp.shape == (2, 3, 41, 50) and dog.shape == (2, 5, 41, 50)
     assert not torch.isfinite(score[:, :, 0]).any()       # border rows
+
+
+PLAN_SHAPES = [(64, 64), (70, 200), (120, 160), (200, 131), (240, 320), (480, 640),
+               (960, 1280)]
+
+
+@pytest.mark.parametrize("nlev", range(3, 9))
+@pytest.mark.parametrize("r", [1, 5, 20, 32])
+def test_launch_plan_fits_and_covers(nlev, r):
+    for h, w in PLAN_SHAPES:
+        one = k3._launch_plan(1, h, w, nlev, r)
+        assert one["smem_bytes"] <= 232_448
+        strips, bands = one["grid"][:2]
+        assert strips * k3.STRIP >= w > (strips - 1) * k3.STRIP
+        bh = one["band_rows"]
+        assert bands * bh >= h > (bands - 1) * bh
+        # the level halo: a band's groups of 8 rows cover its rows +- 1
+        assert k3.GROUP_ROWS * one["groups"] >= bh + 2
+        # the window a group blurs from (2r + 8 rows of the strip + 2r + 2
+        # columns) and the next group's 8 rows
+        assert one["window_rows"] == 2 * r + 2 * k3.GROUP_ROWS
+        assert k3.WINDOW_STRIDE >= k3.STRIP + 2 + 2 * r
+        # the row-blurred buffer: every column the horizontal pass reads,
+        # with a stride of 1 mod 32
+        assert one["vbuf_stride"] >= k3.STRIP + 2 + 2 * r
+        assert one["vbuf_stride"] % 32 == 1
+        for b in (2, 8):
+            plan = k3._launch_plan(b, h, w, nlev, r)
+            assert plan["grid"] == (strips, bands, b)
+            assert {k: v for k, v in plan.items() if k != "grid"} == \
+                {k: v for k, v in one.items() if k != "grid"}
+
+
+def test_launch_plan_fills_the_card_at_the_batch_octaves():
+    """8 frames give at least 2 blocks for each of the 132 SMs at every
+    octave K3 runs on in the batch."""
+    for h, w in [(960, 1280), (480, 640), (240, 320), (120, 160)]:
+        plan = k3._launch_plan(8, h, w, 5, 20)
+        assert np.prod(plan["grid"]) >= 2 * 132
+
+
+def test_launch_plan_rejects_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        k3._launch_plan(1, 64, 64, 9, 5)
+    with pytest.raises(ValueError):
+        k3._launch_plan(1, 64, 64, 5, 33)
+
