@@ -21,8 +21,12 @@ Phases (one line each; any failure raises and exits non-zero):
      frames [8, 960, 1280] and on one [960, 1280] base, then timed at the
      four octave shapes the batch launches it on (960x1280 down to
      120x160, 8 frames each) and summed per batch;
-  8. K4 against its plain version at L=3x960x1280, N=3072, S=144;
-  9. K5 against its plain version at N=3840, S=144;
+  8. K4 against its plain version at L=3x960x1280, N=3072, S=144, then
+     at the five octave shapes the batch launches it on (level stacks
+     3 x 960x1280 down to 3 x 60x80, N = 3072, 1536, 384, 96, 32), each
+     timed, the per-frame sum x 8 logged as a per-batch sum beside the
+     summed bound;
+  9. K5 the same at N = 3840, 1920, 480, 120, 40;
  10. K6 against its plain version at N=3072 on 12x12 grids;
  11. the batched fused-extraction path as bench.py's `bstep` runs it:
      `extract_batch` of 8 frames with fused_pyramid="pallas_hbm" and
@@ -423,60 +427,106 @@ def _rel_err(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-12)).item()
 
 
-def check_ori_hist(dev, gen, L=3, H=960, W=1280, N=3072, S=144, nb=36) -> dict:
-    """K4 vs its plain version; samples include border and outside."""
+# the batch's per-octave K4/K5 shapes: each frame's level stack and its
+# slot budgets (config.py's octave_budgets, desc slots x 1.25)
+OCTAVE_SHAPES = ((960, 1280), (480, 640), (240, 320), (120, 160), (60, 80))
+ORI_SLOTS = (3072, 1536, 384, 96, 32)
+DESC_SLOTS = (3840, 1920, 480, 120, 40)
+BATCH_FRAMES = 8
+
+
+def _hist_case(name, run, plain, rel_name):
+    """One K4/K5 shape: kernel vs plain within HIST_REL, two runs identical,
+    then the kernel's time.  Returns (out, ref, rel_err, ms)."""
+    out, ref = run(), plain()
+    err = _rel_err(out, ref)
+    if not err <= HIST_REL:
+        raise AssertionError(f"{name}: max |err| / max |{rel_name}| {err} > {HIST_REL}")
+    if not torch.equal(out, run()):
+        raise AssertionError(f"{name}: two runs differ")
+    return out, ref, err, time_ms(run, name)
+
+
+def _per_octave(tag, cases) -> dict:
+    """Sum the per-octave times of one frame, x BATCH_FRAMES per batch."""
+    frame_ms = sum(o["ms"] for o in cases)
+    frame_bound = sum(o["bound_ms"] for o in cases)
+    log(tag, octaves=len(cases), frame_ms_sum=f"{frame_ms:.4f}",
+        batch_ms_sum=f"{BATCH_FRAMES * frame_ms:.4f}",
+        batch_bound_ms_sum=f"{BATCH_FRAMES * frame_bound:.4f}",
+        pct_of_bound=f"{100 * frame_bound / frame_ms:.1f}", card=json.dumps(smi_line()))
+    return dict(octaves=cases, batch_ms_sum=BATCH_FRAMES * frame_ms,
+                batch_bound_ms_sum=BATCH_FRAMES * frame_bound)
+
+
+def check_ori_hist(dev, gen, L=3, S=144, nb=36) -> dict:
+    """K4 vs its plain version at each octave shape the batch launches it
+    on (octave 0 also timed against the plain version); samples include
+    border and outside."""
     from cusift_tpu_torch.kernels import sampler as k
 
-    gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, S)
-    wv = torch.from_numpy(gen.uniform(0, 1, (N, S)).astype(np.float32)).to(dev)
-    hist = k.sample_ori_hist(gauss, lvl, ys, xs, wv, nb)
-    ref = k.sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb)
-    err = _rel_err(hist, ref)
-    if not err <= HIST_REL:
-        raise AssertionError(f"K4: max |err| / max |hist| {err} > {HIST_REL}")
-    if not torch.equal(hist, k.sample_ori_hist(gauss, lvl, ys, xs, wv, nb)):
-        raise AssertionError("K4: two runs differ")
-    ms = time_ms(lambda: k.sample_ori_hist(gauss, lvl, ys, xs, wv, nb), "k4")
-    plain_ms = time_ms(lambda: k.sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb),
-                       "k4 plain")
-    log("k4", shape=f"L{L}x{H}x{W},N{N},S{S}", rel_err=err,
-        max_abs_err=(hist - ref).abs().max().item(), ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}")
-    # per sample: the sampling, the polar form, and 2 bins of weight
-    return dict(max_abs_err=(hist - ref).abs().max().item(), rel_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=None,
-                **bound(nbytes(gauss, lvl, ys, xs, wv, hist),
-                        N * S * (SAMPLE_FLOPS + POLAR_FLOPS + 2 * 6)))
+    cases, first = [], None
+    for (H, W), N in zip(OCTAVE_SHAPES, ORI_SLOTS):
+        gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, S)
+        wv = torch.from_numpy(gen.uniform(0, 1, (N, S)).astype(np.float32)).to(dev)
+        hist, ref, err, ms = _hist_case(
+            f"k4 {H}x{W}", lambda: k.sample_ori_hist(gauss, lvl, ys, xs, wv, nb),
+            lambda: k.sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb), "hist")
+        abs_err = (hist - ref).abs().max().item()
+        # per sample: the sampling, the polar form, and 2 bins of weight
+        b = bound(nbytes(gauss, lvl, ys, xs, wv, hist),
+                  N * S * (SAMPLE_FLOPS + POLAR_FLOPS + 2 * 6))
+        plan = k._launch_plan(N, S, None, k._sm_count(dev.index))
+        cases.append(dict(shape=[L, H, W, N, S], ms=ms, rel_err=err, max_abs_err=abs_err,
+                          slots=plan["slots"], **b))
+        log("k4", shape=f"L{L}x{H}x{W},N{N},S{S}", rel_err=err, max_abs_err=abs_err,
+            ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}", slots=plan["slots"],
+            blocks=plan["blocks"], threads=plan["threads"])
+        if first is None:
+            first = cases[0]
+            plain_ms = time_ms(lambda: k.sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb),
+                               "k4 plain")
+            log("k4", shape=f"L{L}x{H}x{W},N{N},S{S}", plain_ms=f"{plain_ms:.4f}")
+    return dict(max_abs_err=max(o["max_abs_err"] for o in cases),
+                rel_err=max(o["rel_err"] for o in cases), ms=first["ms"],
+                plain_ms=plain_ms, library_ms=None, bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], **_per_octave("k4", cases))
 
 
-def check_desc_raw(dev, gen, L=3, H=960, W=1280, N=3840, S=144, nb=8,
-                   cells=16) -> dict:
-    """K5 vs its plain version, with the descriptor's own spatial weights."""
+def check_desc_raw(dev, gen, L=3, S=144, nb=8, cells=16) -> dict:
+    """K5 vs its plain version at each octave shape the batch launches it
+    on, with the descriptor's own spatial weights (octave 0 also timed
+    against the plain version)."""
     from cusift_tpu_torch.kernels import sampler as k
     from cusift_tpu_torch.ops.describe import _spatial_weights
 
-    gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, S)
     _, wsp, gw = (torch.from_numpy(a).to(dev) for a in _spatial_weights(12, 4))
-    wv = gw[None, :].expand(N, -1).contiguous()
-    theta = torch.from_numpy(gen.uniform(0, 2 * np.pi, N).astype(np.float32)).to(dev)
-    raw = k.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, nb)
-    ref = k.sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, wsp, nb)
-    err = _rel_err(raw, ref)
-    if not err <= HIST_REL:
-        raise AssertionError(f"K5: max |err| / max |raw| {err} > {HIST_REL}")
-    if not torch.equal(raw, k.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, nb)):
-        raise AssertionError("K5: two runs differ")
-    ms = time_ms(lambda: k.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, nb), "k5")
-    plain_ms = time_ms(lambda: k.sample_desc_raw_plain(gauss, lvl, ys, xs, theta,
-                                                       wv, wsp, nb), "k5 plain")
-    log("k5", shape=f"L{L}x{H}x{W},N{N},S{S}", rel_err=err,
-        max_abs_err=(raw - ref).abs().max().item(), ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}")
-    # per sample: the sampling, the polar form, 2 bins x 4 cells x 2 ops
-    return dict(max_abs_err=(raw - ref).abs().max().item(), rel_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=None,
-                **bound(nbytes(gauss, lvl, ys, xs, theta, wv, wsp, raw),
-                        N * S * (SAMPLE_FLOPS + POLAR_FLOPS + 2 * 4 * 2)))
+    cases, first = [], None
+    for (H, W), N in zip(OCTAVE_SHAPES, DESC_SLOTS):
+        gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, S)
+        wv = gw[None, :].expand(N, -1).contiguous()
+        theta = torch.from_numpy(gen.uniform(0, 2 * np.pi, N).astype(np.float32)).to(dev)
+        args = (gauss, lvl, ys, xs, theta, wv, wsp, nb)
+        raw, ref, err, ms = _hist_case(f"k5 {H}x{W}", lambda: k.sample_desc_raw(*args),
+                                       lambda: k.sample_desc_raw_plain(*args), "raw")
+        abs_err = (raw - ref).abs().max().item()
+        # per sample: the sampling, the polar form, 2 bins x 4 cells x 2 ops
+        b = bound(nbytes(gauss, lvl, ys, xs, theta, wv, wsp, raw),
+                  N * S * (SAMPLE_FLOPS + POLAR_FLOPS + 2 * 4 * 2))
+        plan = k._launch_plan(N, S, cells, k._sm_count(dev.index))
+        cases.append(dict(shape=[L, H, W, N, S], ms=ms, rel_err=err, max_abs_err=abs_err,
+                          slots=plan["slots"], **b))
+        log("k5", shape=f"L{L}x{H}x{W},N{N},S{S}", rel_err=err, max_abs_err=abs_err,
+            ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}", slots=plan["slots"],
+            blocks=plan["blocks"], threads=plan["threads"])
+        if first is None:
+            first = cases[0]
+            plain_ms = time_ms(lambda: k.sample_desc_raw_plain(*args), "k5 plain")
+            log("k5", shape=f"L{L}x{H}x{W},N{N},S{S}", plain_ms=f"{plain_ms:.4f}")
+    return dict(max_abs_err=max(o["max_abs_err"] for o in cases),
+                rel_err=max(o["rel_err"] for o in cases), ms=first["ms"],
+                plain_ms=plain_ms, library_ms=None, bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], **_per_octave("k5", cases))
 
 
 def check_sep(dev, gen, L=3, H=960, W=1280, N=3072, G=12) -> dict:

@@ -31,12 +31,37 @@
 // per slot), and the latency of the scattered corner loads: each sample
 // reads 12 floats of one small window.  K1 and K6 run one thread per
 // sample, slot-major, so a warp's samples share one window and its loads
-// coalesce into few cache lines.  K4 and K5 run one block per slot: the
-// threads first turn the slot's samples into (fractional bin, weight)
-// pairs in shared memory, then each thread owns one output (a bin for K4,
-// a (bin, cell) for K5) and sums over the samples in a fixed order.  There
-// is no float atomicAdd, so repeated runs are bit-identical.  Staging each
-// slot's window in shared memory is left for a later change.
+// coalesce into few cache lines.
+//
+// K4 and K5 would be bound by instruction throughput if they summed every
+// term: a sample's soft weight is non-zero for only two of the nb bins
+// (lo = floor(fbin) and lo + 1 mod nb), and the descriptor's spatial
+// weights are ~86% zeros, so a dense (bin, cell) x sample contraction is
+// ~96% exact zeros.  Both kernels therefore sum only the non-zero terms:
+//   * a block holds `slots` slots (kernels/sampler.py:_launch_plan): 256
+//     threads where a launch fills the card, else a thread per sample, so
+//     that a small octave waits for one sample's loads;
+//   * phase 1 stores one 16-byte record per sample: lo and the two soft
+//     weights (K4: beside the sample weight; K5: multiplied by it);
+//   * K5 also compacts each cell's non-zero w_spatial rows, ascending in
+//     s, into a list in shared memory, from the matrix it is given (warp
+//     ballots; no host state);
+//   * phase 2: each thread owns outputs (K4 a (slot, bin), K5 a (slot,
+//     cell, bin)), walks the samples (K5: its cell's list) and takes the
+//     fmaf only where its bin is lo or lo + 1.
+// A dropped term is an exact zero and no weight is infinite, so it could
+// not change an f32 sum (the running sum is never -0).  The kept terms are
+// summed in ascending s with a dense sum's expressions (K4 fmaf(wgt, soft,
+// acc); K5 fmaf(wsp, soft * wgt, acc)), so the results are the dense
+// form's bits.  Samples go in chunks, in ascending order, where a slot's
+// samples do not fit the 48 KB budget; a thread then carries its sums
+// across chunks in its own output words.  There is no float atomicAdd, so
+// repeated runs are bit-identical.
+//
+// What bounds them now (tools/hist_kernel_phases.py): the gradient
+// sampling they share with K1 takes most of the time, then the walks, and
+// for K5 the list build, whose strided reads of w_spatial cost L1
+// throughput in every block.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,7 +70,7 @@
 namespace {
 
 constexpr int kThreads = 256;      // K1, K6: threads per block
-constexpr int kSlotThreads = 128;  // K4, K5: threads per slot block
+constexpr int kSlotThreads = 1024; // K4, K5: most threads of a block
 constexpr float kTwoPi = 6.283185307179586f;
 
 __device__ __forceinline__ float grad_x(const float* g, int r, int c, int w) {
@@ -136,40 +161,137 @@ __global__ void sample_grad_sep_kernel(const float* __restrict__ gauss,
   dy[i] = vy;
 }
 
-// Phase 1 of K4/K5: the (fractional bin, weight) of every sample of slot
-// n into shared memory; theta0 - angle for K5, the angle itself for K4.
-__device__ __forceinline__ void bin_samples(const float* g, int h, int w,
-                                            const float* ys, const float* xs,
-                                            const float* wv, int S, float theta0,
-                                            float sign, int nb,
-                                            float* fbin, float* wgt) {
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    float dx, dy;
-    const bool inb = sample_grad(g, h, w, ys[s], xs[s], &dx, &dy);
-    const float mag = sqrtf(dx * dx + dy * dy);
-    const float ang = theta0 + sign * atan2f(dy, dx);
-    fbin[s] = fmod_pos(ang / kTwoPi * (float)nb, (float)nb);
-    wgt[s] = inb ? mag * wv[s] : 0.0f;
+// The (fractional bin, weight) of one sample of slot n: theta0 - angle
+// for K5, the angle itself for K4 (the reference's formulas).
+__device__ __forceinline__ void polar_sample(const float* g, int h, int w,
+                                             float y, float x, float wv,
+                                             float theta0, float sign, int nb,
+                                             float* fbin, float* wgt) {
+  float dx, dy;
+  const bool inb = sample_grad(g, h, w, y, x, &dx, &dy);
+  const float mag = sqrtf(dx * dx + dy * dy);
+  const float ang = theta0 + sign * atan2f(dy, dx);
+  *fbin = fmod_pos(ang / kTwoPi * (float)nb, (float)nb);
+  *wgt = inb ? mag * wv : 0.0f;
+}
+
+// The lower of the two bins a fractional bin f can weigh on.  fmod_pos
+// gives f in [-ulp, nb]: floor -1 is bin nb - 1 (its partner is bin 0),
+// f == nb weighs on bin 0 alone, and a NaN f (a NaN theta) weighs on
+// nothing, so bin 0 serves both.
+__device__ __forceinline__ int lower_bin(float f, int nb) {
+  const float fl = floorf(f);
+  if (!(fl >= -1.0f && fl < (float)nb)) return 0;
+  return fl < 0.0f ? nb - 1 : (int)fl;
+}
+
+__device__ __forceinline__ int upper_bin(int lo, int nb) {
+  return lo + 1 == nb ? 0 : lo + 1;
+}
+
+// Phase 1 of K4/K5 for chunk [c0, c0 + cn) of the block's np slots: one
+// 16-byte record per sample at p * chunk + s in shared memory,
+// {lo, wgt, soft(lo), soft(lo + 1)} for K4 and {lo, soft(lo) * wgt,
+// soft(lo + 1) * wgt, 0} for K5 (kDesc).  The plan gives each thread at
+// most one sample of a chunk where the block has threads enough.
+template <bool kDesc>
+__device__ __forceinline__ void bin_chunk(const float* gauss, const int32_t* lvl,
+                                          const float* ys, const float* xs,
+                                          const float* wv, const float* theta,
+                                          int L, int h, int w, int S, int nb,
+                                          int n0, int np, int c0, int cn, int chunk,
+                                          float4* rec) {
+  for (int i = threadIdx.x; i < np * cn; i += blockDim.x) {
+    const int p = i / cn, s = i - p * cn;
+    const int n = n0 + p;
+    const size_t row = (size_t)n * S + c0 + s;
+    float fb, wg;
+    if (kDesc)
+      polar_sample(level(gauss, lvl, n, L, h, w), h, w, ys[row], xs[row], wv[row],
+                   theta[n], -1.0f, nb, &fb, &wg);
+    else
+      polar_sample(level(gauss, lvl, n, L, h, w), h, w, ys[row], xs[row], wv[row],
+                   0.0f, 1.0f, nb, &fb, &wg);
+    const int l = lower_bin(fb, nb);
+    const float s0 = soft_bin(fb, (float)l, (float)nb);
+    const float s1 = soft_bin(fb, (float)upper_bin(l, nb), (float)nb);
+    rec[p * chunk + s] = kDesc ? make_float4(__int_as_float(l), __fmul_rn(s0, wg),
+                                             __fmul_rn(s1, wg), 0.0f)
+                               : make_float4(__int_as_float(l), wg, s0, s1);
   }
 }
+
+// Phase 2 reads each record whole and selects between the running sum
+// and its two candidate fmafs, with no branch: the loads of a thread's
+// walk are independent of the sum and pipeline, and a sample whose bins
+// are not the thread's leaves the sum as it was.
 
 __global__ void __launch_bounds__(kSlotThreads)
 ori_hist_kernel(const float* __restrict__ gauss, const int32_t* __restrict__ lvl,
                 const float* __restrict__ ys, const float* __restrict__ xs,
                 const float* __restrict__ wv, float* __restrict__ hist,
-                int L, int h, int w, int S, int nb) {
-  extern __shared__ float sm[];
-  float* fbin = sm;
-  float* wgt = sm + S;
-  const int n = blockIdx.x;
-  const size_t row = (size_t)n * S;
-  bin_samples(level(gauss, lvl, n, L, h, w), h, w, ys + row, xs + row, wv + row,
-              S, 0.0f, 1.0f, nb, fbin, wgt);
-  __syncthreads();
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    float acc = 0.0f;
-    for (int s = 0; s < S; ++s) acc += wgt[s] * soft_bin(fbin[s], (float)b, (float)nb);
-    hist[(size_t)n * nb + b] = acc;
+                int L, int h, int w, int N, int S, int nb, int slots, int chunk) {
+  extern __shared__ float4 sm4[];
+  float4* rec = sm4;
+  const int n0 = blockIdx.x * slots;
+  const int np = min(slots, N - n0);
+  float* out = hist + (size_t)n0 * nb;
+  for (int c0 = 0; c0 < S; c0 += chunk) {
+    const int cn = min(chunk, S - c0);
+    bin_chunk<false>(gauss, lvl, ys, xs, wv, nullptr, L, h, w, S, nb, n0, np, c0, cn,
+                     chunk, rec);
+    __syncthreads();
+    for (int o = threadIdx.x; o < np * nb; o += blockDim.x) {
+      const int p = o / nb, b = o - p * nb;
+      const int below = b == 0 ? nb - 1 : b - 1;   // lo of the samples whose upper bin is b
+      const float4* r = rec + p * chunk;
+      float acc = c0 == 0 ? 0.0f : out[o];
+#pragma unroll 8
+      for (int s = 0; s < cn; ++s) {
+        const float4 v = r[s];
+        const int l = __float_as_int(v.x);
+        const float lo_term = fmaf(v.y, v.z, acc), hi_term = fmaf(v.y, v.w, acc);
+        acc = l == b ? lo_term : (l == below ? hi_term : acc);
+      }
+      out[o] = acc;
+    }
+    __syncthreads();
+  }
+}
+
+// The pitch of a cell's list in K5's shared memory: odd, so that a warp's
+// stores into one list and its loads from four lists (phase 2) fall in
+// distinct banks.
+__host__ __device__ __forceinline__ int list_pitch(int chunk) { return chunk | 1; }
+
+// Compact each cell's non-zero rows of a chunk of w_spatial [cn, cells]
+// into {s, weight} entries, ascending in s: entry i of cell c at
+// c * list_pitch + i.  One warp per cell; a ballot per 32 rows keeps the
+// order.  A lane loads its rows of 8 ballots before the first, so a cell
+// costs one load latency per 256 rows.
+__device__ __forceinline__ void spatial_lists(const float* wsp, int cn, int cells,
+                                              int pitch, int2* lst, int* len) {
+  constexpr int kBatch = 8;
+  const int lane = threadIdx.x & 31;
+  for (int c = threadIdx.x >> 5; c < cells; c += blockDim.x >> 5) {
+    int count = 0;
+    for (int base = 0; base < cn; base += 32 * kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int s = base + 32 * j + lane;
+        v[j] = s < cn ? wsp[(size_t)s * cells + c] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const unsigned keep = __ballot_sync(0xffffffffu, v[j] != 0.0f);
+        if (v[j] != 0.0f)
+          lst[c * pitch + count + __popc(keep & ((1u << lane) - 1u))] =
+              make_int2(base + 32 * j + lane, __float_as_int(v[j]));
+        count += __popc(keep);
+      }
+    }
+    if (lane == 0) len[c] = count;
   }
 }
 
@@ -178,21 +300,46 @@ desc_raw_kernel(const float* __restrict__ gauss, const int32_t* __restrict__ lvl
                 const float* __restrict__ ys, const float* __restrict__ xs,
                 const float* __restrict__ theta, const float* __restrict__ wv,
                 const float* __restrict__ wsp, float* __restrict__ raw,
-                int L, int h, int w, int S, int nb, int cells) {
-  extern __shared__ float sm[];
-  float* fbin = sm;
-  float* wgt = sm + S;
-  const int n = blockIdx.x;
-  const size_t row = (size_t)n * S;
-  bin_samples(level(gauss, lvl, n, L, h, w), h, w, ys + row, xs + row, wv + row,
-              S, theta[n], -1.0f, nb, fbin, wgt);
-  __syncthreads();
-  for (int o = threadIdx.x; o < nb * cells; o += blockDim.x) {
-    const int b = o / cells, c = o % cells;
-    float acc = 0.0f;
-    for (int s = 0; s < S; ++s)
-      acc += wsp[s * cells + c] * (soft_bin(fbin[s], (float)b, (float)nb) * wgt[s]);
-    raw[(size_t)n * nb * cells + o] = acc;
+                int L, int h, int w, int N, int S, int nb, int cells,
+                int slots, int chunk) {
+  extern __shared__ float4 sm4[];
+  float4* rec = sm4;
+  int2* lst = reinterpret_cast<int2*>(rec + slots * chunk);
+  const int pitch = list_pitch(chunk);
+  int* len = reinterpret_cast<int*>(lst + cells * pitch);
+  const int n0 = blockIdx.x * slots;
+  const int np = min(slots, N - n0);
+  const int outs = nb * cells;
+  float* out = raw + (size_t)n0 * outs;
+  for (int c0 = 0; c0 < S; c0 += chunk) {
+    const int cn = min(chunk, S - c0);
+    spatial_lists(wsp + (size_t)c0 * cells, cn, cells, pitch, lst, len);
+    bin_chunk<true>(gauss, lvl, ys, xs, wv, theta, L, h, w, S, nb, n0, np, c0, cn,
+                    chunk, rec);
+    __syncthreads();
+    // o runs (slot, cell, bin), bin fastest: the lanes of one (slot, cell)
+    // walk the same list and read the same records
+    for (int o = threadIdx.x; o < np * outs; o += blockDim.x) {
+      const int pc = o / nb, b = o - pc * nb;
+      const int p = pc / cells, c = pc - p * cells;
+      const int below = b == 0 ? nb - 1 : b - 1;
+      const float4* r = rec + p * chunk;
+      const int2* e = lst + c * pitch;
+      const int k = p * outs + b * cells + c;        // [slot, bin, cell]
+      float acc = c0 == 0 ? 0.0f : out[k];
+      const int m = len[c];
+#pragma unroll 4
+      for (int i = 0; i < m; ++i) {
+        const int2 en = e[i];
+        const float4 v = r[en.x];
+        const int l = __float_as_int(v.x);
+        const float ws = __int_as_float(en.y);
+        const float lo_term = fmaf(ws, v.y, acc), hi_term = fmaf(ws, v.z, acc);
+        acc = l == b ? lo_term : (l == below ? hi_term : acc);
+      }
+      out[k] = acc;
+    }
+    __syncthreads();
   }
 }
 
@@ -228,14 +375,17 @@ extern "C" int cusift_sample_grad_patches_sep(const void* gauss, const void* lvl
   return (int)cudaGetLastError();
 }
 
+// K4 and K5 take their plan from kernels/sampler.py:_launch_plan: SLOTS
+// slots per block of THREADS threads, samples in chunks of CHUNK, SMEM
+// bytes of dynamic shared memory (at most 48 KB, so no opt-in).
 extern "C" int cusift_sample_ori_hist(const void* gauss, const void* lvl,
                                       const void* ys, const void* xs, const void* wv,
                                       void* hist, int L, int H, int W, int N, int S,
-                                      int NB, void* stream) {
-  const size_t smem = 2 * (size_t)S * sizeof(float);
-  ori_hist_kernel<<<N, kSlotThreads, smem, (cudaStream_t)stream>>>(
+                                      int NB, int SLOTS, int CHUNK, int THREADS,
+                                      int SMEM, void* stream) {
+  ori_hist_kernel<<<blocks_for(N, SLOTS), THREADS, SMEM, (cudaStream_t)stream>>>(
       (const float*)gauss, (const int32_t*)lvl, (const float*)ys, (const float*)xs,
-      (const float*)wv, (float*)hist, L, H, W, S, NB);
+      (const float*)wv, (float*)hist, L, H, W, N, S, NB, SLOTS, CHUNK);
   return (int)cudaGetLastError();
 }
 
@@ -244,11 +394,11 @@ extern "C" int cusift_sample_desc_raw(const void* gauss, const void* lvl,
                                       const void* theta, const void* wv,
                                       const void* w_spatial, void* raw,
                                       int L, int H, int W, int N, int S, int NB,
-                                      int CELLS, void* stream) {
-  const size_t smem = 2 * (size_t)S * sizeof(float);
-  desc_raw_kernel<<<N, kSlotThreads, smem, (cudaStream_t)stream>>>(
+                                      int CELLS, int SLOTS, int CHUNK, int THREADS,
+                                      int SMEM, void* stream) {
+  desc_raw_kernel<<<blocks_for(N, SLOTS), THREADS, SMEM, (cudaStream_t)stream>>>(
       (const float*)gauss, (const int32_t*)lvl, (const float*)ys, (const float*)xs,
       (const float*)theta, (const float*)wv, (const float*)w_spatial, (float*)raw,
-      L, H, W, S, NB, CELLS);
+      L, H, W, N, S, NB, CELLS, SLOTS, CHUNK);
   return (int)cudaGetLastError();
 }

@@ -36,11 +36,12 @@ SIGNATURES = {
     "cusift_sample_grad_patches": ((_P,) * 7 + (_I,) * 5 + (_P,), _I),
     # K6: gauss, lvl, ys_rows, xs_cols, dx, dy, inb, L, H, W, N, GR, GC, stream
     "cusift_sample_grad_patches_sep": ((_P,) * 7 + (_I,) * 6 + (_P,), _I),
-    # K4: gauss, lvl, ys, xs, wv, hist, L, H, W, N, S, NB, stream
-    "cusift_sample_ori_hist": ((_P,) * 6 + (_I,) * 6 + (_P,), _I),
+    # K4: gauss, lvl, ys, xs, wv, hist, L, H, W, N, S, NB, SLOTS, CHUNK,
+    #     THREADS, SMEM, stream
+    "cusift_sample_ori_hist": ((_P,) * 6 + (_I,) * 10 + (_P,), _I),
     # K5: gauss, lvl, ys, xs, theta, wv, w_spatial, raw, L, H, W, N, S, NB,
-    #     CELLS, stream
-    "cusift_sample_desc_raw": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
+    #     CELLS, SLOTS, CHUNK, THREADS, SMEM, stream
+    "cusift_sample_desc_raw": ((_P,) * 8 + (_I,) * 11 + (_P,), _I),
     # K2: a, b, valid_b, top, idx, part_top, part_idx, N, M, D, P,
     #     cols_per_split, stream
     "cusift_match_top2": ((_P,) * 7 + (_I,) * 5 + (_P,), _I),

@@ -19,8 +19,14 @@ G), the bf16 dots and the polynomial atan2 have no meaning on the GPU and
 are not carried over.
 
 What bounds them on the H100: the bytes of the level stack and of the
-per-sample inputs, and the latency of the scattered corner loads; see the
-source's header for the design.
+per-sample inputs, and the latency of the scattered corner loads.  K4 and
+K5 add a histogram per slot whose dense form is ~96% exact zeros (a
+sample weighs on two of nb bins; the descriptor's spatial weights are
+~86% zeros), so they sum only the non-zero terms, in the order and with
+the expressions of a dense sum, which keeps its bits.  `_launch_plan`
+packs several slots into a block, so that every thread has samples to
+bin and outputs to own, and cuts the samples into chunks that fit 48 KB
+of shared memory; see the source's header for the design.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 `*_plain` version, the same math in plain torch, which is also what the
@@ -35,6 +41,7 @@ import torch
 
 from ..ops.gaussian import image_gradients
 from . import _build
+from .matcher import _sm_count
 
 # kernel launches made by each wrapper
 launches = 0               # K1 sample_grad_patches
@@ -223,7 +230,52 @@ def sample_grad_patches_sep(gauss: torch.Tensor, lvl: torch.Tensor,
     return dx, dy, inb
 
 
-MAX_SAMPLES = 4096   # K4/K5 keep 2 floats per sample of a slot in shared memory
+MAX_SAMPLES = 4096   # K4/K5: samples per slot the wrappers take
+
+SLOT_THREADS = 256          # K4/K5: threads of a block where a launch fills the card
+MAX_THREADS = 1024          # csrc kSlotThreads
+SM_THREADS = 2048           # resident threads of an SM (Hopper)
+SMEM_BUDGET = 48 * 1024     # K4/K5: dynamic shared memory without the opt-in
+BLOCK_SAMPLES = 512         # K4/K5: samples of a block, so slots = 512 // S
+
+
+def _launch_plan(n: int, s: int, cells: int | None, sms: int) -> dict:
+    """Grid of K4 (cells None) or K5 for n slots of s samples on `sms` SMs.
+
+    A block holds `slots` = BLOCK_SAMPLES // s slots (3 at 144 samples),
+    but no more than leave every SM a block.  Where the launch's samples
+    fill the card's resident threads, a block has SLOT_THREADS threads,
+    each binning about two samples and owning a few outputs; where they do
+    not, a block has a thread for each sample of its chunk, so the launch
+    waits for one sample's loads and no more.  The samples go in chunks of
+    `chunk`, the most that fit SMEM_BUDGET: a 16-byte record per (slot,
+    sample), and for K5 an 8-byte list entry per (cell, sample), at an odd
+    pitch, and a list length per cell.  The bin count does not change the
+    plan: outputs beyond the threads are walked in turn.  Chosen from a
+    sweep of slots and threads at the batch's octave shapes on an H100.
+    """
+    if n <= 0 or s <= 0 or (cells is not None and cells <= 0) or sms <= 0:
+        raise ValueError(f"K4/K5 plan: n={n}, s={s}, cells={cells}, sms={sms}")
+    slots = max(1, min(BLOCK_SAMPLES // s, n // sms))
+    # K5's lists have an odd pitch (csrc list_pitch): one spare entry each
+    per_sample = 16 * slots + (8 * cells if cells is not None else 0)
+    fixed = 12 * cells if cells is not None else 0
+    chunk = min(s, (SMEM_BUDGET - fixed) // per_sample)
+    if chunk < 1:
+        raise ValueError(f"K4/K5 plan: {cells} cells do not fit {SMEM_BUDGET} bytes")
+    if n * s >= sms * SM_THREADS:
+        threads = SLOT_THREADS
+    else:
+        threads = min(MAX_THREADS, -(-slots * chunk // 32) * 32)
+    smem = 16 * slots * chunk
+    if cells is not None:
+        smem += 8 * cells * (chunk | 1) + 4 * cells
+    return dict(slots=slots, threads=threads, chunk=chunk, chunks=-(-s // chunk),
+                smem_bytes=smem, blocks=-(-n // slots))
+
+
+def _plan_args(plan: dict) -> tuple[int, int, int, int]:
+    return plan["slots"], plan["chunk"], plan["threads"], plan["smem_bytes"]
 
 
 def _check_slots(fn: str, gauss, lvl, ys, xs, wv) -> tuple[int, int]:
@@ -254,8 +306,9 @@ def sample_ori_hist(gauss: torch.Tensor, lvl: torch.Tensor, ys: torch.Tensor,
     if n * s == 0 or nb == 0:
         return hist.zero_()
     l, h, w = gauss.shape
+    plan = _launch_plan(n, s, None, _sm_count(gauss.device.index))
     _launch("cusift_sample_ori_hist", gauss, *_ptrs(gauss, lvl, ys, xs, wv, hist),
-            l, h, w, n, s, nb)
+            l, h, w, n, s, nb, *_plan_args(plan))
     ori_hist_launches += 1
     return hist
 
@@ -284,8 +337,9 @@ def sample_desc_raw(gauss: torch.Tensor, lvl: torch.Tensor, ys: torch.Tensor,
     if n * s == 0 or nb * cells == 0:
         return raw.zero_()
     l, h, w = gauss.shape
+    plan = _launch_plan(n, s, cells, _sm_count(gauss.device.index))
     _launch("cusift_sample_desc_raw", gauss,
             *_ptrs(gauss, lvl, ys, xs, theta, wv, w_spatial, raw),
-            l, h, w, n, s, nb, cells)
+            l, h, w, n, s, nb, cells, *_plan_args(plan))
     desc_raw_launches += 1
     return raw

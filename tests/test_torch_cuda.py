@@ -11,8 +11,9 @@ formula, FMA contraction only); K2 atol 1e-5 on the scores (float32 dot
 products of unit vectors in another summation order), and the index may
 differ only where the plain top-2 is a near tie; K3 atol 1e-5 on levels
 and DoG (float32 sums of another order), score masks equal on >= 99.99% of
-pixels; K4 and K5 1e-4 of the largest histogram value (sums over 144
-samples in another order, atan2f against torch's atan2).
+pixels; K4 and K5 1e-4 of the largest histogram value (sums over the
+samples in another order, atan2f against torch's atan2), and their reruns
+bit-identical.
 """
 
 import numpy as np
@@ -231,6 +232,152 @@ def test_desc_raw_kernel_matches_plain(dev, n, s):
     ref = k1.sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, wsp, 8)
     torch.cuda.synchronize()
     _close_rel(raw, ref, 1e-4)
+    assert torch.equal(raw, k1.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, 8))
+
+
+def _desc_weights(kind, s, cells, rng):
+    """w_spatial [s, cells]: the descriptor's own (s = 144), one with an
+    all-zero column, or a random one with ~80% zeros."""
+    from cusift_tpu_torch.ops.describe import _spatial_weights
+
+    if kind == "descriptor":
+        return _spatial_weights(12, 4)[1]
+    w = rng.uniform(0, 1, (s, cells)).astype(np.float32)
+    if kind == "zero_column":
+        w[:, 5] = 0.0
+    else:
+        w[rng.random((s, cells)) < 0.8] = 0.0
+    return w
+
+
+@pytest.mark.parametrize("kind,n,s", [("descriptor", 3840, 144), ("descriptor", 1, 144),
+                                      ("zero_column", 777, 144), ("sparse", 40, 1000)])
+def test_desc_raw_kernel_spatial_weights(dev, kind, n, s):
+    """K5 with the descriptor's own spatial weights, an all-zero column, and
+    more samples than one shared-memory chunk holds; reruns bit-identical."""
+    rng = np.random.default_rng(11)
+    gauss, lvl, ys, xs = _points(rng, dev, 3, 240, 320, n, s, 20.0)
+    wv = torch.from_numpy(rng.uniform(0, 1, (n, s)).astype(np.float32)).to(dev)
+    theta = torch.from_numpy(rng.uniform(0, 2 * np.pi, n).astype(np.float32)).to(dev)
+    wsp = torch.from_numpy(_desc_weights(kind, s, 16, rng)).to(dev)
+    plan = k1._launch_plan(n, s, 16, k1._sm_count(dev.index))
+    assert (plan["chunks"] > 1) == (s > 144)
+    raw = k1.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, 8)
+    ref = k1.sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, wsp, 8)
+    torch.cuda.synchronize()
+    _close_rel(raw, ref, 1e-4)
+    if kind == "zero_column":
+        assert not bool(raw[:, :, 5].any())
+    assert torch.equal(raw, k1.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, 8))
+
+
+def _ragged_n(cells, s, sms, start=1000):
+    """A slot count whose last block is ragged under the K4/K5 plan."""
+    n = start
+    while n % k1._launch_plan(n, s, cells, sms)["slots"] == 0:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("which", ["k4", "k5"])
+def test_hist_kernels_ragged_last_block(dev, which):
+    """N = 1 and an N that leaves the last block of slots part-filled,
+    against the plain versions; the ragged run's slots match single-slot
+    launches bit for bit."""
+    sms = k1._sm_count(dev.index)
+    rng = np.random.default_rng(12)
+    cells = 16 if which == "k5" else None
+    nb = 8 if which == "k5" else 36
+    n = _ragged_n(cells, 144, sms)
+    assert k1._launch_plan(n, 144, cells, sms)["slots"] > 1
+    gauss, lvl, ys, xs = _points(rng, dev, 3, 240, 320, n, 144, 20.0)
+    wv = torch.from_numpy(rng.uniform(0, 1, (n, 144)).astype(np.float32)).to(dev)
+    theta = torch.from_numpy(rng.uniform(0, 2 * np.pi, n).astype(np.float32)).to(dev)
+    wsp = torch.from_numpy(_desc_weights("descriptor", 144, 16, rng)).to(dev)
+
+    def run(sl):
+        if which == "k4":
+            return k1.sample_ori_hist(gauss, lvl[sl], ys[sl], xs[sl], wv[sl], nb)
+        return k1.sample_desc_raw(gauss, lvl[sl], ys[sl], xs[sl], theta[sl], wv[sl],
+                                  wsp, nb)
+
+    def plain(sl):
+        if which == "k4":
+            return k1.sample_ori_hist_plain(gauss, lvl[sl], ys[sl], xs[sl], wv[sl], nb)
+        return k1.sample_desc_raw_plain(gauss, lvl[sl], ys[sl], xs[sl], theta[sl],
+                                        wv[sl], wsp, nb)
+
+    full = run(slice(None))
+    _close_rel(full, plain(slice(None)), 1e-4)
+    for i in (0, n - 1):
+        one = run(slice(i, i + 1))
+        _close_rel(one, plain(slice(i, i + 1)), 1e-4)
+        assert torch.equal(one[0], full[i])
+
+
+def _stamped_level(h=32, w=32):
+    """A level whose central-difference gradient at chosen integer points is
+    exactly (dx, dy): angle 0, pi, pi/2, -pi/2 and a tiny negative angle
+    whose fractional bin rounds to nb after the circular fmod."""
+    g = np.zeros((h, w), np.float32)
+    points = []
+    for (r, c), (dx, dy) in zip(((4, 4), (4, 12), (4, 20), (12, 4), (12, 12)),
+                                ((1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0),
+                                 (1.0, -1e-8))):
+        g[r, c + 1], g[r, c - 1] = dx, -dx
+        g[r + 1, c], g[r - 1, c] = dy, -dy
+        points.append((r, c))
+    return g, points
+
+
+@pytest.mark.parametrize("nb", [36, 1, 2, 10, 300])
+def test_ori_hist_kernel_bin_edges(dev, nb):
+    """K4 where fractional bins land exactly on bin edges and at nb after
+    the fmod (which weighs on bin 0 alone), for nb other than 36 too (nb =
+    300 gives a thread more than one bin)."""
+    g, points = _stamped_level()
+    rng = np.random.default_rng(13)
+    n, s = 50, 40
+    pts = np.array(points, np.float32)[rng.integers(0, len(points), (n, s))]
+    gauss = torch.from_numpy(np.stack([g, g[::-1].copy()])).to(dev)
+    lvl = torch.zeros(n, dtype=torch.int32, device=dev)
+    ys = torch.from_numpy(np.ascontiguousarray(pts[..., 0])).to(dev)
+    xs = torch.from_numpy(np.ascontiguousarray(pts[..., 1])).to(dev)
+    wv = torch.from_numpy(rng.uniform(0.5, 1, (n, s)).astype(np.float32)).to(dev)
+    hist = k1.sample_ori_hist(gauss, lvl, ys, xs, wv, nb)
+    ref = k1.sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb)
+    torch.cuda.synchronize()
+    _close_rel(hist, ref, 1e-4)
+    assert torch.equal(hist, k1.sample_ori_hist(gauss, lvl, ys, xs, wv, nb))
+
+
+def test_desc_raw_kernel_bin_edges(dev):
+    """K5 with slot orientations that put the fractional bins on edges
+    (theta = 0, pi/2, pi, 2 pi) and at nb after the fmod (a tiny negative
+    theta), on the stamped level's exact gradients; a NaN theta and NaN
+    points weigh nothing."""
+    from cusift_tpu_torch.ops.describe import _spatial_weights
+
+    g, points = _stamped_level()
+    rng = np.random.default_rng(14)
+    n, s = 60, 144
+    pts = np.array(points, np.float32)[rng.integers(0, len(points), (n, s))]
+    gauss = torch.from_numpy(g[None]).to(dev)
+    lvl = torch.zeros(n, dtype=torch.int32, device=dev)
+    ys = torch.from_numpy(np.ascontiguousarray(pts[..., 0])).to(dev)
+    xs = torch.from_numpy(np.ascontiguousarray(pts[..., 1])).to(dev)
+    ys[7, :10] = float("nan")
+    thetas = np.array([0.0, np.pi / 2, np.pi, 2 * np.pi, -1e-7], np.float32)
+    theta = torch.from_numpy(thetas[np.arange(n) % len(thetas)]).to(dev)
+    wv = torch.from_numpy(rng.uniform(0.5, 1, (n, s)).astype(np.float32)).to(dev)
+    wsp = torch.from_numpy(_spatial_weights(12, 4)[1]).to(dev)
+    raw = k1.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, 8)
+    ref = k1.sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, wsp, 8)
+    torch.cuda.synchronize()
+    _close_rel(raw, ref, 1e-4)
+    theta[3] = float("nan")
+    raw = k1.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, 8)
+    assert not bool(raw[3].any()) and bool(torch.isfinite(raw).all())
 
 
 @pytest.mark.parametrize("n,gr,gc", [(3072, 12, 12), (33, 5, 7)])
