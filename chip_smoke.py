@@ -7,7 +7,11 @@ Phases (one line each; any failure raises and exits non-zero):
   2. build: compile kernels K1-K6 from cusift_tpu_torch/csrc with nvcc for
      sm_90a (one nvcc per source, all started together);
   3. K1 against its plain torch version at the octave-0 shape of the bench
-     config (L=3, 960x1280, N=3840, S=144);
+     config (L=3, 960x1280, N=3840, S=144, random points within 25 px of
+     each slot's centre), timed beside its library yardstick (one
+     grid_sample over the gradient volume) and at the path's own
+     descriptor and orientation geometries; its bound counts the level
+     pixels the points read, not the whole stack;
   4. K2 against its plain torch version at N = M = 6144, plus the
      all-invalid, single-candidate and ragged-N cases; its bound is the
      function's 2*N*M*D at the TF32 tensor-core peak, with the f32 bound
@@ -27,7 +31,8 @@ Phases (one line each; any failure raises and exits non-zero):
      timed, the per-frame sum x 8 logged as a per-batch sum beside the
      summed bound;
   9. K5 the same at N = 3840, 1920, 480, 120, 40;
- 10. K6 against its plain version at N=3072 on 12x12 grids;
+ 10. K6 against its plain version at N=3072 on 12x12 grids, timed beside
+     the same grid_sample yardstick, its bound counted as K1's;
  11. the batched fused-extraction path as bench.py's `bstep` runs it:
      `extract_batch` of 8 frames with fused_pyramid="pallas_hbm" and
      sampler="fused", then `match` of the 7 consecutive pairs; checks the
@@ -58,6 +63,9 @@ BENCH_SIFT = dict(max_kpts=6144, max_kpts_per_octave=3072,
 # the bench's batched headline variant (scripts/tpu_batch_r4a.sh)
 FUSED = dict(fused_pyramid="pallas_hbm", sampler="fused")
 K1_ATOL = 1e-5   # f32, same formula; only FMA contraction differs
+# K1/K6's grid_sample yardstick: its normalised coordinates lose digits
+# (an f32 ulp of a coordinate near 1 is 8e-5 px at 1280 columns)
+LIBRARY_ATOL = 2e-4
 K2_ATOL = 1e-5   # f32 dot products of unit vectors, other summation order
 K3_ATOL = 1e-5   # f32 blur sums in another order than cuDNN's
 K3_MASK = 0.9999  # score masks may differ where a near tie flips
@@ -159,6 +167,22 @@ def read_counts() -> dict:
             "desc_raw": sampler.desc_raw_launches, "sep": sampler.sep_launches}
 
 
+def sample_bytes(gauss, lvl, ys, xs) -> int:
+    """Bytes of the level pixels that gradient sampling at (ys, xs) [N, S]
+    must read: each distinct pixel of a sample's corners and their central
+    differences, once.  Points are clipped as the kernels clip them."""
+    l, h, w = gauss.shape
+    y = ys.nan_to_num(0.0).clamp(0.0, h - 1.000001)
+    x = xs.nan_to_num(0.0).clamp(0.0, w - 1.000001)
+    y0 = y.floor().long().clamp(max=h - 2)
+    x0 = x.floor().long().clamp(max=w - 2)
+    base = lvl.long().clamp(0, l - 1)[:, None] * (h * w)
+    reads = [(-1, 0), (-1, 1), (2, 0), (2, 1)] + [(r, c) for r in (0, 1) for c in (-1, 0, 1, 2)]
+    idx = torch.cat([base + (y0 + r).clamp(0, h - 1) * w + (x0 + c).clamp(0, w - 1)
+                     for r, c in reads], 1)
+    return gauss.element_size() * int(torch.unique(idx).numel())
+
+
 def _points(gen, dev, L, H, W, N, S, spread=25.0):
     """Level stack, per-slot levels and sample points, with samples on the
     borders and outside the image."""
@@ -175,27 +199,118 @@ def _points(gen, dev, L, H, W, N, S, spread=25.0):
     return gauss, lvl, ys, xs
 
 
-def check_sampler(dev, gen: np.random.Generator, L=3, H=960, W=1280,
-                  N=3840, S=144) -> dict:
-    """K1 vs its plain version; coordinates include border and outside."""
-    from cusift_tpu_torch.kernels import sampler as k1
+def path_points(gen, dev, kind, L=3, H=960, W=1280):
+    """(lvl, ys, xs) of K1's slots on the two-view path at octave 0: the
+    descriptor grid of `ops/describe.py` (N = 3840, a 12 x 12 grid rotated
+    by theta, cell width 3 sigma_oct) or the orientation grid of
+    `ops/orientation.py` (N = 3072, axis-aligned, radius 4.5 sigma_oct),
+    around random centres, with sigma_oct = 1.6 * 2^(so / 3), so uniform in
+    [0, 3) and theta in [0, 2 pi)."""
+    from cusift_tpu_torch import SiftConfig
+    from cusift_tpu_torch.ops.describe import _spatial_weights
 
-    gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, S)
+    cfg = SiftConfig()
+    n = 3840 if kind == "descriptor" else 3072
+    so = gen.uniform(0, 3, n)
+    sigma = cfg.sigma0 * 2.0 ** (so / cfg.scales_per_octave)
+    cy, cx = gen.uniform(0, H, (n, 1)), gen.uniform(0, W, (n, 1))
+    if kind == "descriptor":
+        coords = _spatial_weights(cfg.desc_grid, cfg.desc_width)[0].astype(np.float64)
+        cell = (cfg.desc_scale_factor * sigma)[:, None]
+        th = gen.uniform(0, 2 * np.pi, (n, 1))
+        u, v = coords[None, :, 1] * cell, coords[None, :, 0] * cell
+        xs = cx + u * np.cos(th) - v * np.sin(th)
+        ys = cy + u * np.sin(th) + v * np.cos(th)
+    else:
+        g = cfg.ori_grid
+        c1d = (np.arange(g) + 0.5) / g * 2.0 - 1.0
+        span = (cfg.ori_radius_factor * sigma)[:, None] * c1d[None, :]
+        ys = np.repeat(cy + span, g, axis=1)             # point r * g + c
+        xs = np.tile(cx + span, (1, g))
+    lvl = torch.from_numpy(gen.integers(0, L, n).astype(np.int32)).to(dev)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    return lvl, as_t(ys), as_t(xs)
+
+
+def library_yardstick(tag, gauss, lvl, ys, xs, dx, dy) -> dict:
+    """K1's and K6's library yardstick: one `grid_sample` over the gradient
+    volume [1, 2, L, H, W], whose bilinear weights at an integer level fall
+    on that level.  Times the call (the volume built outside it, and timed
+    beside it) and holds its output to the plain version's (dx, dy)."""
+    import torch.nn.functional as F
+    from cusift_tpu_torch.ops.gaussian import image_gradients
+
+    l, h, w = gauss.shape
+    z = 2.0 * lvl.long().clamp(0, l - 1).float() / max(l - 1, 1) - 1.0
+    grid = torch.stack([2.0 * xs / (w - 1) - 1.0, 2.0 * ys / (h - 1) - 1.0,
+                        z[:, None].expand_as(xs)], -1)[None, None].contiguous()
+    build = lambda: torch.stack(image_gradients(gauss))[None]
+    vol = build()
+    call = lambda: F.grid_sample(vol, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+    out = call()[0, :, 0]                                  # [2, N, S]
+    err = max((out[0] - dx).abs().max().item(), (out[1] - dy).abs().max().item())
+    if not err <= LIBRARY_ATOL:
+        raise AssertionError(f"{tag} library: max |err| {err} > {LIBRARY_ATOL}")
+    library_ms = time_ms(call, f"{tag} library")
+    volume_ms = time_ms(build, f"{tag} library volume")
+    log(tag, library="grid_sample", library_ms=f"{library_ms:.4f}",
+        volume_ms=f"{volume_ms:.4f}", library_max_abs_err=err)
+    return dict(library_ms=library_ms, library_volume_ms=volume_ms, library_max_abs_err=err)
+
+
+def _k1_case(tag, k1, gauss, lvl, ys, xs) -> dict:
+    """K1 once against its plain version (inb equal, atol K1_ATOL on
+    in-image samples); returns the outputs, the error and the bound."""
     dx, dy, inb = k1.sample_grad_patches(gauss, lvl, ys, xs)
     rx, ry, rinb = k1.sample_grad_patches_plain(gauss, lvl, ys, xs)
     torch.cuda.synchronize()
     if not torch.equal(inb, rinb):
-        raise AssertionError("K1: inb differs from the plain version")
+        raise AssertionError(f"{tag}: inb differs from the plain version")
     err = max((dx - rx)[rinb].abs().max().item(), (dy - ry)[rinb].abs().max().item())
     if not err <= K1_ATOL:
-        raise AssertionError(f"K1: max |err| {err} > {K1_ATOL}")
-    frac_in = rinb.float().mean().item()
+        raise AssertionError(f"{tag}: max |err| {err} > {K1_ATOL}")
+    b = bound(sample_bytes(gauss, lvl, ys, xs) + nbytes(lvl, ys, xs, dx, dy, inb),
+              SAMPLE_FLOPS * ys.numel())
+    return dict(out=(dx, dy, inb), plain=(rx, ry, rinb), max_abs_err=err, bound=b)
+
+
+def check_sampler(dev, gen: np.random.Generator, L=3, H=960, W=1280,
+                  N=3840, S=144) -> dict:
+    """K1 vs its plain version and the library's grid_sample at random
+    points (border and outside included), then at the path's own
+    geometries."""
+    from cusift_tpu_torch.kernels import sampler as k1
+
+    gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, S)
+    case = _k1_case("k1", k1, gauss, lvl, ys, xs)
+    (dx, dy, inb), (rx, ry, rinb) = case["out"], case["plain"]
+    err = case["max_abs_err"]
     ms = time_ms(lambda: k1.sample_grad_patches(gauss, lvl, ys, xs), "k1")
     plain_ms = time_ms(lambda: k1.sample_grad_patches_plain(gauss, lvl, ys, xs), "k1 plain")
-    log("k1", shape=f"L{L}x{H}x{W},N{N},S{S}", inb_frac=f"{frac_in:.4f}",
-        max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound(nbytes(gauss, lvl, ys, xs, dx, dy, inb), SAMPLE_FLOPS * N * S))
+    b = case["bound"]
+    stack = bound(nbytes(gauss, lvl, ys, xs, dx, dy, inb), SAMPLE_FLOPS * N * S)
+    log("k1", shape=f"L{L}x{H}x{W},N{N},S{S}", inb_frac=f"{rinb.float().mean():.4f}",
+        max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{b['bound_ms']:.4f}", pct_of_bound=f"{100 * b['bound_ms'] / ms:.1f}",
+        whole_stack_bound_ms=f"{stack['bound_ms']:.4f}", card=json.dumps(smi_line()))
+    lib = library_yardstick("k1", gauss, lvl, ys, xs, rx, ry)
+    log("k1", faster_than_library=ms <= lib["library_ms"])
+
+    geometries = {}
+    for kind in ("descriptor", "orientation"):
+        plvl, pys, pxs = path_points(gen, dev, kind, L, H, W)
+        n = pys.shape[0]
+        pc = _k1_case(f"k1 {kind}", k1, gauss, plvl, pys, pxs)
+        pms = time_ms(lambda: k1.sample_grad_patches(gauss, plvl, pys, pxs), f"k1 {kind}")
+        pb = pc["bound"]
+        geometries[kind] = dict(shape=[L, H, W, n, S], ms=pms, max_abs_err=pc["max_abs_err"],
+                                **pb)
+        log("k1", geometry=kind, shape=f"L{L}x{H}x{W},N{n},S{S}",
+            max_abs_err=pc["max_abs_err"], ms=f"{pms:.4f}", bound_ms=f"{pb['bound_ms']:.4f}",
+            pct_of_bound=f"{100 * pb['bound_ms'] / pms:.1f}")
+    return dict(max_abs_err=max(err, *(g["max_abs_err"] for g in geometries.values())),
+                ms=ms, plain_ms=plain_ms, **lib, **b, path_geometries=geometries)
 
 
 def _unit(gen, n, d=128):
@@ -546,11 +661,18 @@ def check_sep(dev, gen, L=3, H=960, W=1280, N=3072, G=12) -> dict:
     ms = time_ms(lambda: k.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols), "k6")
     plain_ms = time_ms(lambda: k.sample_grad_patches_sep_plain(gauss, lvl, ys_rows,
                                                                xs_cols), "k6 plain")
+    # the expanded grid, point (n, r * G + c): the pixels it reads, and the
+    # library call's points
+    ys = ys_rows[:, :, None].expand(N, G, G).reshape(N, -1)
+    xs = xs_cols[:, None, :].expand(N, G, G).reshape(N, -1)
+    b = bound(sample_bytes(gauss, lvl, ys, xs) + nbytes(lvl, ys_rows, xs_cols, dx, dy, inb),
+              SAMPLE_FLOPS * N * G * G)
     log("k6", shape=f"L{L}x{H}x{W},N{N},{G}x{G}", inb_frac=f"{rinb.float().mean():.4f}",
-        max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound(nbytes(gauss, lvl, ys_rows, xs_cols, dx, dy, inb),
-                        SAMPLE_FLOPS * N * G * G))
+        max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{b['bound_ms']:.4f}", pct_of_bound=f"{100 * b['bound_ms'] / ms:.1f}")
+    lib = library_yardstick("k6", gauss, lvl, ys, xs, rdx, rdy)
+    log("k6", faster_than_library=ms <= lib["library_ms"])
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **lib, **b)
 
 
 def _covers(ref, got, i) -> tuple[bool, float]:

@@ -9,8 +9,9 @@
 //   * y0 = min(floor(y), h - 2), x0 = min(floor(x), w - 2);
 //   * gradients are zero on the first and last row and column;
 //   * the level index is clipped to [0, L - 1].
-// That sampling is one __device__ function, sample_grad, which every
-// kernel here calls.  Everything is f32: the TPU kernels' bf16 dots were
+// That sampling is one __device__ function, sample_grad, which K4, K5 and
+// K6 call; K1 calls sample_grad_12, the same values from fewer loads.
+// Everything is f32: the TPU kernels' bf16 dots were
 // a trade for the MXU's rate, and their polynomial atan2 stood in for a
 // primitive Mosaic lacks; here atan2f does.
 //
@@ -31,7 +32,14 @@
 // per slot), and the latency of the scattered corner loads: each sample
 // reads 12 floats of one small window.  K1 and K6 run one thread per
 // sample, slot-major, so a warp's samples share one window and its loads
-// coalesce into few cache lines.
+// coalesce into few cache lines.  What bounds K1 is the L1 traffic of
+// those loads: a warp's 32 samples scatter over its slot's window, so
+// each load instruction touches many lines.  sample_grad makes 16 loads
+// for 12 distinct floats, each under its border test; sample_grad_12
+// makes one unconditional load per distinct float.  Copying each slot's
+// window into shared memory first, as the TPU kernel does into VMEM, was
+// slower on the H100: the copy moves about as many bytes as the loads,
+// after one more round trip (PERF.md, PR 5).
 //
 // K4 and K5 would be bound by instruction throughput if they summed every
 // term: a sample's soft weight is non-zero for only two of the nb bins
@@ -69,7 +77,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // K1, K6: threads per block
+constexpr int kThreads = 256;      // K6: threads per block
+constexpr int kSampleThreads = 192; // K1: threads per block (timed best of 64-512)
 constexpr int kSlotThreads = 1024; // K4, K5: most threads of a block
 constexpr float kTwoPi = 6.283185307179586f;
 
@@ -105,6 +114,44 @@ __device__ __forceinline__ bool sample_grad(const float* __restrict__ g, int h, 
   return inb;
 }
 
+// sample_grad's values from 12 loads, one for each distinct float it
+// reads.  Where a border test fails, the row above or below, or the column
+// left or right, is replaced by the corner's own (in the plane, and read
+// anyway), and the test discards the difference as grad_x and grad_y do.
+__device__ __forceinline__ bool sample_grad_12(const float* __restrict__ g, int h, int w,
+                                               float y, float x, float* dx, float* dy) {
+  const bool inb = (y >= 0.0f) && (y <= (float)(h - 1)) && (x >= 0.0f) && (x <= (float)(w - 1));
+  const float ymax = (float)((double)h - 1.000001);
+  const float xmax = (float)((double)w - 1.000001);
+  y = fminf(fmaxf(y, 0.0f), ymax);
+  x = fminf(fmaxf(x, 0.0f), xmax);
+  const int y0 = min((int)floorf(y), h - 2);
+  const int x0 = min((int)floorf(x), w - 2);
+  const float fy = y - (float)y0;
+  const float fx = x - (float)x0;
+
+  const float* r0 = g + y0 * w + x0;              // rows y0 and y0 + 1 at column x0
+  const float* r1 = r0 + w;
+  const float* up = y0 > 0 ? r0 - w : r0;         // row y0 - 1
+  const float* dn = y0 + 2 < h ? r1 + w : r1;     // row y0 + 2
+  const int cl = x0 > 0 ? -1 : 0, cr = x0 + 2 < w ? 2 : 1;   // columns x0 - 1, x0 + 2
+  const float u0 = up[0], u1 = up[1];
+  const float a_ = r0[cl], a0 = r0[0], a1 = r0[1], a2 = r0[cr];
+  const float b_ = r1[cl], b0 = r1[0], b1 = r1[1], b2 = r1[cr];
+  const float d0 = dn[0], d1 = dn[1];
+  const bool cx0 = x0 > 0 && x0 < w - 1, cx1 = x0 + 1 < w - 1;
+  const bool cy0 = y0 > 0 && y0 < h - 1, cy1 = y0 + 1 < h - 1;
+  const float gx00 = cx0 ? 0.5f * (a1 - a_) : 0.0f, gx01 = cx1 ? 0.5f * (a2 - a0) : 0.0f;
+  const float gx10 = cx0 ? 0.5f * (b1 - b_) : 0.0f, gx11 = cx1 ? 0.5f * (b2 - b0) : 0.0f;
+  const float gy00 = cy0 ? 0.5f * (b0 - u0) : 0.0f, gy01 = cy0 ? 0.5f * (b1 - u1) : 0.0f;
+  const float gy10 = cy1 ? 0.5f * (d0 - a0) : 0.0f, gy11 = cy1 ? 0.5f * (d1 - a1) : 0.0f;
+
+  const float ux = 1.0f - fx, uy = 1.0f - fy;
+  *dx = (gx00 * ux + gx01 * fx) * uy + (gx10 * ux + gx11 * fx) * fy;
+  *dy = (gy00 * ux + gy01 * fx) * uy + (gy10 * ux + gy11 * fx) * fy;
+  return inb;
+}
+
 __device__ __forceinline__ const float* level(const float* gauss, const int32_t* lvl,
                                               int n, int L, int h, int w) {
   const int l = min(max(lvl[n], 0), L - 1);
@@ -123,19 +170,20 @@ __device__ __forceinline__ float soft_bin(float f, float b, float nb) {
   return fmaxf(0.0f, 1.0f - d);
 }
 
-__global__ void sample_grad_kernel(const float* __restrict__ gauss,
-                                   const int32_t* __restrict__ lvl,
-                                   const float* __restrict__ ys,
-                                   const float* __restrict__ xs,
-                                   float* __restrict__ dx,
-                                   float* __restrict__ dy,
-                                   uint8_t* __restrict__ inb,
-                                   int L, int h, int w, long long total, int S) {
+__global__ void __launch_bounds__(kSampleThreads)
+sample_grad_kernel(const float* __restrict__ gauss,
+                   const int32_t* __restrict__ lvl,
+                   const float* __restrict__ ys,
+                   const float* __restrict__ xs,
+                   float* __restrict__ dx,
+                   float* __restrict__ dy,
+                   uint8_t* __restrict__ inb,
+                   int L, int h, int w, long long total, int S) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const float* g = level(gauss, lvl, (int)(i / S), L, h, w);
   float vx, vy;
-  inb[i] = sample_grad(g, h, w, ys[i], xs[i], &vx, &vy);
+  inb[i] = sample_grad_12(g, h, w, ys[i], xs[i], &vx, &vy);
   dx[i] = vx;
   dy[i] = vy;
 }
@@ -355,7 +403,8 @@ extern "C" int cusift_sample_grad_patches(const void* gauss, const void* lvl,
                                           int L, int H, int W, int N, int S,
                                           void* stream) {
   const long long total = (long long)N * S;
-  sample_grad_kernel<<<blocks_for(total, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+  sample_grad_kernel<<<blocks_for(total, kSampleThreads), kSampleThreads, 0,
+                       (cudaStream_t)stream>>>(
       (const float*)gauss, (const int32_t*)lvl, (const float*)ys,
       (const float*)xs, (float*)dx, (float*)dy, (uint8_t*)inb,
       L, H, W, total, S);

@@ -19,7 +19,8 @@ G), the bf16 dots and the polynomial atan2 have no meaning on the GPU and
 are not carried over.
 
 What bounds them on the H100: the bytes of the level stack and of the
-per-sample inputs, and the latency of the scattered corner loads.  K4 and
+per-sample inputs, and the latency of the scattered corner loads (K1
+loads each of a sample's 12 distinct floats once).  K4 and
 K5 add a histogram per slot whose dense form is ~96% exact zeros (a
 sample weighs on two of nb bins; the descriptor's spatial weights are
 ~86% zeros), so they sum only the non-zero terms, in the order and with

@@ -60,6 +60,59 @@ def test_sampler_kernel_matches_plain(dev, shape):
     torch.testing.assert_close(dy[rinb], rdy[rinb], atol=1e-5, rtol=0)
 
 
+def _k1_case(case, rng, dev):
+    """(gauss, lvl, ys, xs) of one K1 card case."""
+    import chip_smoke
+
+    L, H, W, N, S = 3, 240, 320, 301, 144
+    if case in ("descriptor", "orientation"):
+        lvl, ys, xs = chip_smoke.path_points(rng, dev, case, L, H, W)
+        gauss = torch.from_numpy(rng.normal(size=(L, H, W)).astype(np.float32)).to(dev)
+        return gauss, lvl, ys, xs
+    L, H, W, N, S = {"n1": (L, H, W, 1, S), "ragged": (L, H, W, 1001, S),
+                     "odd_width": (3, 200, 131, N, S), "h2": (2, 2, 64, 40, S),
+                     "w2": (2, 64, 2, 40, S), "s9": (L, H, W, 77, 9),
+                     "s1000": (L, H, W, 7, 1000), "s3000": (L, H, W, 5, 3000)}.get(
+                         case, (L, H, W, N, S))
+    gauss, lvl, ys, xs = _points(rng, dev, L, H, W, N, S, 20.0)
+    if case == "unaligned":            # a stack 4 bytes off 16
+        buf = torch.empty(L * H * W + 1, device=dev)
+        buf[1:] = gauss.reshape(-1)
+        gauss = buf[1:].view(L, H, W)
+    if case == "wide":                 # every third slot spread over 300 px
+        ys[::3] += torch.from_numpy(rng.uniform(-150, 150, ys[::3].shape)
+                                    .astype(np.float32)).to(dev)
+    if case == "nan":
+        ys[5:9, ::3] = float("nan")
+        xs[9:13, ::4] = float("inf")
+        ys[13:17, ::5] = -float("inf")
+        ys[17] = float("nan")
+    return gauss, lvl, ys, xs
+
+
+@pytest.mark.parametrize("case", ["wide", "descriptor", "orientation", "n1", "ragged",
+                                  "odd_width", "unaligned", "nan", "h2", "w2", "s9",
+                                  "s1000", "s3000"])
+def test_sampler_kernel_cases(dev, case):
+    """K1 against its plain version (inb equal, atol 1e-5 on in-image
+    samples) at the path's descriptor and orientation geometries, N = 1 and
+    a ragged last block, an odd width, an unaligned stack, NaN and inf
+    points, h = 2, w = 2, widely spread slots, and S under a warp and over
+    a block's threads; reruns are bit-identical."""
+    rng = np.random.default_rng(15)
+    gauss, lvl, ys, xs = _k1_case(case, rng, dev)
+    before = k1.launches
+    out = k1.sample_grad_patches(gauss, lvl, ys, xs)
+    assert k1.launches == before + 1
+    rdx, rdy, rinb = k1.sample_grad_patches_plain(gauss, lvl, ys, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(out[2], rinb)
+    torch.testing.assert_close(out[0][rinb], rdx[rinb], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out[1][rinb], rdy[rinb], atol=1e-5, rtol=0)
+    again = k1.sample_grad_patches(gauss, lvl, ys, xs)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
 @pytest.mark.parametrize("n,m,d", [(1000, 777, 128), (33, 6144, 128), (5, 3, 64),
                                    (64, 64, 100)])
 def test_matcher_kernel_matches_plain(dev, n, m, d):
