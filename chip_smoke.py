@@ -31,14 +31,19 @@ Phases (one line each; any failure raises and exits non-zero):
      timed, the per-frame sum x 8 logged as a per-batch sum beside the
      summed bound;
   9. K5 the same at N = 3840, 1920, 480, 120, 40;
- 10. K6 against its plain version at N=3072 on 12x12 grids, timed beside
-     the same grid_sample yardstick, its bound counted as K1's;
+ 10. K6 against its plain version at N=3072 on random 12x12 grids, then
+     at the orientation grid it serves on the separable path
+     (`ops/orientation.py`'s 12 x 12 lattice) at the five octave shapes
+     and slot budgets, each timed beside the same grid_sample yardstick,
+     its bound counted as K1's; the JSON line's ms and bound are octave
+     0's, with the pair's 10 launches summed;
  11. the batched fused-extraction path as bench.py's `bstep` runs it:
      `extract_batch` of 8 frames with fused_pyramid="pallas_hbm" and
      sampler="fused", then `match` of the 7 consecutive pairs; checks the
-     launch counts, that the fused features cover the default config's on
-     every frame, and the homography of the 4 true pairs; then times 10
-     batches of both configurations;
+     launch counts, that the default config's `extract_batch` equals
+     `extract` of each frame slot by slot, that the fused features cover
+     the default config's on every frame, and the homography of the 4
+     true pairs; then times 10 batches of both configurations;
  12. the separable two-view path: `match_pair` with sampler="separable".
 The line before the last is a JSON object with each kernel's launches on
 its path, its error against the plain version, its times and its bound;
@@ -199,34 +204,57 @@ def _points(gen, dev, L, H, W, N, S, spread=25.0):
     return gauss, lvl, ys, xs
 
 
-def path_points(gen, dev, kind, L=3, H=960, W=1280):
-    """(lvl, ys, xs) of K1's slots on the two-view path at octave 0: the
-    descriptor grid of `ops/describe.py` (N = 3840, a 12 x 12 grid rotated
-    by theta, cell width 3 sigma_oct) or the orientation grid of
-    `ops/orientation.py` (N = 3072, axis-aligned, radius 4.5 sigma_oct),
-    around random centres, with sigma_oct = 1.6 * 2^(so / 3), so uniform in
-    [0, 3) and theta in [0, 2 pi)."""
+def orientation_rows(gen, dev, n, L=3, H=960, W=1280):
+    """(lvl, ys_rows, xs_cols) of n slots of the orientation grid, as
+    `ops/orientation.py:51-55` builds it for K6 (and expands it for K1):
+    cfg.ori_grid rows and columns at radius 4.5 sigma_oct x the cell
+    centres of [-1, 1], sigma_oct = 1.6 * 2^(so / 3), so uniform in [0, 3),
+    around random centres in the image."""
     from cusift_tpu_torch import SiftConfig
-    from cusift_tpu_torch.ops.describe import _spatial_weights
 
     cfg = SiftConfig()
-    n = 3840 if kind == "descriptor" else 3072
     so = gen.uniform(0, 3, n)
     sigma = cfg.sigma0 * 2.0 ** (so / cfg.scales_per_octave)
     cy, cx = gen.uniform(0, H, (n, 1)), gen.uniform(0, W, (n, 1))
-    if kind == "descriptor":
-        coords = _spatial_weights(cfg.desc_grid, cfg.desc_width)[0].astype(np.float64)
-        cell = (cfg.desc_scale_factor * sigma)[:, None]
-        th = gen.uniform(0, 2 * np.pi, (n, 1))
-        u, v = coords[None, :, 1] * cell, coords[None, :, 0] * cell
-        xs = cx + u * np.cos(th) - v * np.sin(th)
-        ys = cy + u * np.sin(th) + v * np.cos(th)
-    else:
-        g = cfg.ori_grid
-        c1d = (np.arange(g) + 0.5) / g * 2.0 - 1.0
-        span = (cfg.ori_radius_factor * sigma)[:, None] * c1d[None, :]
-        ys = np.repeat(cy + span, g, axis=1)             # point r * g + c
-        xs = np.tile(cx + span, (1, g))
+    g = cfg.ori_grid
+    c1d = (np.arange(g) + 0.5) / g * 2.0 - 1.0
+    span = (cfg.ori_radius_factor * sigma)[:, None] * c1d[None, :]
+    lvl = torch.from_numpy(gen.integers(0, L, n).astype(np.int32)).to(dev)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    return lvl, as_t(cy + span), as_t(cx + span)
+
+
+def expand_grid(ys_rows, xs_cols):
+    """K6's grid as K1's points [N, GR * GC], point (n, r * GC + c)."""
+    n, gr = ys_rows.shape
+    gc = xs_cols.shape[1]
+    return (ys_rows[:, :, None].expand(n, gr, gc).reshape(n, -1),
+            xs_cols[:, None, :].expand(n, gr, gc).reshape(n, -1))
+
+
+def path_points(gen, dev, kind, L=3, H=960, W=1280):
+    """(lvl, ys, xs) of K1's slots on the two-view path at octave 0: the
+    descriptor grid of `ops/describe.py` (N = 3840, a 12 x 12 grid rotated
+    by theta, cell width 3 sigma_oct) or the orientation grid (N = 3072,
+    `orientation_rows` expanded), around random centres, with sigma_oct =
+    1.6 * 2^(so / 3), so uniform in [0, 3) and theta in [0, 2 pi)."""
+    from cusift_tpu_torch import SiftConfig
+    from cusift_tpu_torch.ops.describe import _spatial_weights
+
+    if kind == "orientation":
+        lvl, ys_rows, xs_cols = orientation_rows(gen, dev, 3072, L, H, W)
+        return (lvl, *(t.contiguous() for t in expand_grid(ys_rows, xs_cols)))
+    cfg = SiftConfig()
+    n = 3840
+    so = gen.uniform(0, 3, n)
+    sigma = cfg.sigma0 * 2.0 ** (so / cfg.scales_per_octave)
+    cy, cx = gen.uniform(0, H, (n, 1)), gen.uniform(0, W, (n, 1))
+    coords = _spatial_weights(cfg.desc_grid, cfg.desc_width)[0].astype(np.float64)
+    cell = (cfg.desc_scale_factor * sigma)[:, None]
+    th = gen.uniform(0, 2 * np.pi, (n, 1))
+    u, v = coords[None, :, 1] * cell, coords[None, :, 0] * cell
+    xs = cx + u * np.cos(th) - v * np.sin(th)
+    ys = cy + u * np.sin(th) + v * np.cos(th)
     lvl = torch.from_numpy(gen.integers(0, L, n).astype(np.int32)).to(dev)
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
     return lvl, as_t(ys), as_t(xs)
@@ -644,35 +672,62 @@ def check_desc_raw(dev, gen, L=3, S=144, nb=8, cells=16) -> dict:
                 bound_by=first["bound_by"], **_per_octave("k5", cases))
 
 
-def check_sep(dev, gen, L=3, H=960, W=1280, N=3072, G=12) -> dict:
-    """K6 vs K1's plain version on the expanded grid."""
-    from cusift_tpu_torch.kernels import sampler as k
-
-    gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, G)
-    ys_rows, xs_cols = ys, xs.flip(1).contiguous()
+def _k6_case(tag, k, gauss, lvl, ys_rows, xs_cols) -> dict:
+    """K6 once against its plain version (inb equal, atol K1_ATOL on
+    in-image samples), timed beside the grid_sample yardstick; its bound
+    counts the level pixels the expanded grid reads, as K1's does."""
     dx, dy, inb = k.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols)
     rdx, rdy, rinb = k.sample_grad_patches_sep_plain(gauss, lvl, ys_rows, xs_cols)
     torch.cuda.synchronize()
     if not torch.equal(inb, rinb):
-        raise AssertionError("K6: inb differs from the plain version")
+        raise AssertionError(f"{tag}: inb differs from the plain version")
     err = max((dx - rdx)[rinb].abs().max().item(), (dy - rdy)[rinb].abs().max().item())
     if not err <= K1_ATOL:
-        raise AssertionError(f"K6: max |err| {err} > {K1_ATOL}")
-    ms = time_ms(lambda: k.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols), "k6")
-    plain_ms = time_ms(lambda: k.sample_grad_patches_sep_plain(gauss, lvl, ys_rows,
-                                                               xs_cols), "k6 plain")
-    # the expanded grid, point (n, r * G + c): the pixels it reads, and the
-    # library call's points
-    ys = ys_rows[:, :, None].expand(N, G, G).reshape(N, -1)
-    xs = xs_cols[:, None, :].expand(N, G, G).reshape(N, -1)
+        raise AssertionError(f"{tag}: max |err| {err} > {K1_ATOL}")
+    ms = time_ms(lambda: k.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols), tag)
+    ys, xs = expand_grid(ys_rows, xs_cols)
     b = bound(sample_bytes(gauss, lvl, ys, xs) + nbytes(lvl, ys_rows, xs_cols, dx, dy, inb),
-              SAMPLE_FLOPS * N * G * G)
-    log("k6", shape=f"L{L}x{H}x{W},N{N},{G}x{G}", inb_frac=f"{rinb.float().mean():.4f}",
-        max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        bound_ms=f"{b['bound_ms']:.4f}", pct_of_bound=f"{100 * b['bound_ms'] / ms:.1f}")
-    lib = library_yardstick("k6", gauss, lvl, ys, xs, rdx, rdy)
-    log("k6", faster_than_library=ms <= lib["library_ms"])
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **lib, **b)
+              SAMPLE_FLOPS * ys.numel())
+    (l, h, w), (n, gr), gc = gauss.shape, ys_rows.shape, xs_cols.shape[1]
+    log(tag, shape=f"L{l}x{h}x{w},N{n},{gr}x{gc}", inb_frac=f"{rinb.float().mean():.4f}",
+        max_abs_err=err, ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
+        pct_of_bound=f"{100 * b['bound_ms'] / ms:.1f}", card=json.dumps(smi_line()))
+    lib = library_yardstick(tag, gauss, lvl, ys, xs, rdx, rdy)
+    log(tag, faster_than_library=ms <= lib["library_ms"])
+    return dict(shape=[l, h, w, n, gr, gc], max_abs_err=err, ms=ms, **b, **lib)
+
+
+def check_sep(dev, gen, L=3, G=12) -> dict:
+    """K6 vs K1's plain version on the expanded grid: at random rows and
+    columns (border and outside points included), then at the orientation
+    grid of the separable path at each of its five octave shapes and slot
+    budgets, which is where K6 runs (two launches of each per pair).  The
+    JSON entry's times and bound are the orientation grid's octave 0."""
+    from cusift_tpu_torch.kernels import sampler as k
+
+    (H, W), N = OCTAVE_SHAPES[0], ORI_SLOTS[0]
+    gauss, lvl, ys, xs = _points(gen, dev, L, H, W, N, G)
+    rand = _k6_case("k6", k, gauss, lvl, ys, xs.flip(1).contiguous())
+    octaves = []
+    for (h, w), n in zip(OCTAVE_SHAPES, ORI_SLOTS):
+        g = torch.from_numpy(gen.random((L, h, w), dtype=np.float32)).to(dev)
+        inputs = (g, *orientation_rows(gen, dev, n, L, h, w))
+        octaves.append(_k6_case(f"k6 orientation {h}x{w}", k, *inputs))
+        if len(octaves) == 1:
+            plain_ms = time_ms(lambda: k.sample_grad_patches_sep_plain(*inputs), "k6 plain")
+            log("k6", shape=f"L{L}x{h}x{w},N{n},{G}x{G}", geometry="orientation",
+                plain_ms=f"{plain_ms:.4f}")
+    pair = {key: 2 * sum(o[key] for o in octaves) for key in ("ms", "bound_ms", "library_ms")}
+    log("k6", geometry="orientation", pair_launches=2 * len(octaves),
+        pair_ms_sum=f"{pair['ms']:.4f}", pair_bound_ms_sum=f"{pair['bound_ms']:.4f}",
+        pair_library_ms_sum=f"{pair['library_ms']:.4f}",
+        pct_of_bound=f"{100 * pair['bound_ms'] / pair['ms']:.1f}")
+    o0 = octaves[0]
+    return dict(max_abs_err=max(c["max_abs_err"] for c in [rand, *octaves]), ms=o0["ms"],
+                plain_ms=plain_ms, library_ms=o0["library_ms"], bound_ms=o0["bound_ms"],
+                bound_by=o0["bound_by"], orientation_octaves=octaves,
+                pair_ms_sum=pair["ms"], pair_bound_ms_sum=pair["bound_ms"],
+                pair_library_ms_sum=pair["library_ms"], random_points=rand)
 
 
 def _covers(ref, got, i) -> tuple[bool, float]:
@@ -696,7 +751,7 @@ def batched_fused_path(dev, imgs, h_true, timed_runs=10) -> dict:
     """bench.py's bstep on the port: extract_batch + 7 consecutive matches,
     fused configuration against the default one on the same frames."""
     from cusift_tpu_torch import MatchConfig, RansacConfig, SiftConfig
-    from cusift_tpu_torch.models.sift import extract_batch
+    from cusift_tpu_torch.models.sift import extract, extract_batch
     from cusift_tpu_torch.ops.match import match
     from cusift_tpu_torch.ops.ransac import find_homography
 
@@ -725,6 +780,15 @@ def batched_fused_path(dev, imgs, h_true, timed_runs=10) -> dict:
                              f"K3 >= {n_big}, K4 and K5 >= {n_oct * b}, "
                              f"K2 >= {b - 1}, K1 = K6 = 0")
     ref, _ = bstep(default_cfg)
+    # the batch's chain pyramid hands cuDNN [B, ...]; each frame must still
+    # be extract's own features, slot by slot
+    differ = [f"frame {i} {name}" for i in range(b)
+              for name, got, one in zip(ref._fields, ref, extract(imgs[i], default_cfg))
+              if not torch.equal(got[i], one)]
+    log("batch", check="extract_batch == extract per frame", config="default",
+        frames=b, fields=len(ref._fields), equal=not differ)
+    if differ:
+        raise AssertionError(f"extract_batch differs from extract: {differ[:8]}")
     coverage = []
     for i in range(b):
         ok, cov = _covers(ref, feats, i)

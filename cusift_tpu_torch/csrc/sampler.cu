@@ -9,11 +9,10 @@
 //   * y0 = min(floor(y), h - 2), x0 = min(floor(x), w - 2);
 //   * gradients are zero on the first and last row and column;
 //   * the level index is clipped to [0, L - 1].
-// That sampling is one __device__ function, sample_grad, which K4, K5 and
-// K6 call; K1 calls sample_grad_12, the same values from fewer loads.
-// Everything is f32: the TPU kernels' bf16 dots were
-// a trade for the MXU's rate, and their polynomial atan2 stood in for a
-// primitive Mosaic lacks; here atan2f does.
+// K4 and K5 sample through sample_grad; K1 and K6 through grad_12, the
+// same values from fewer loads.  Everything is f32: the TPU kernels' bf16
+// dots were a trade for the MXU's rate, and their polynomial atan2 stood in
+// for a primitive Mosaic lacks; here atan2f does.
 //
 // K1 sample_grad_kernel replaces cusift_tpu/ops/pallas/sampler.py:
 //   sample_grad_patches (body _kernel): (dx, dy, inb) at [N, S] points.
@@ -27,20 +26,31 @@
 //   8-bin soft histograms of (theta - angle) weighted by magnitude * wv *
 //   inb, contracted with the static spatial weights into [nb, cells].
 //
-// What bounds them on the H100: the bytes of the level stack and of the
-// per-sample inputs and outputs (K4 and K5 write only a small histogram
-// per slot), and the latency of the scattered corner loads: each sample
-// reads 12 floats of one small window.  K1 and K6 run one thread per
-// sample, slot-major, so a warp's samples share one window and its loads
-// coalesce into few cache lines.  What bounds K1 is the L1 traffic of
-// those loads: a warp's 32 samples scatter over its slot's window, so
-// each load instruction touches many lines.  sample_grad makes 16 loads
-// for 12 distinct floats, each under its border test; sample_grad_12
+// What bounds them on the H100: the bytes of the level pixels the points
+// read and of the per-sample inputs and outputs (K4 and K5 write only a
+// small histogram per slot), and the latency of the scattered corner
+// loads: each sample reads 12 floats of one small window.  K1 and K6 run
+// one thread per sample, slot-major, so a warp's samples share one window
+// and its loads coalesce into few cache lines.  What bounds K1 is the L1
+// traffic of those loads: a warp's 32 samples scatter over its slot's
+// window, so each load instruction touches many lines.  sample_grad makes
+// 16 loads for 12 distinct floats, each under its border test; grad_12
 // makes one unconditional load per distinct float.  Copying each slot's
 // window into shared memory first, as the TPU kernel does into VMEM, was
-// slower on the H100: the copy moves about as many bytes as the loads,
-// after one more round trip (PERF.md, PR 5).
+// slower on the H100 for K1: the copy moves about as many bytes as the
+// loads, after one more round trip (PERF.md, §6).
 //
+// K6's points are separable: a slot's GR x GC samples share GR row and GC
+// column set-ups (clip, floor, fraction, border steps).  Doing each once per
+// slot, into shared memory behind a barrier, was no faster than setting
+// up every sample and making sample_grad's 16 loads, and slower on small
+// launches; staging each slot's footprint in shared memory was slower
+// still (PERF.md, §6).  The set-up is a few dozen
+// ALU operations and the kernel waits on memory, so K6 keeps a thread per
+// sample that sets up its own row and column, and takes what did pay:
+// grad_12's 12 unconditional loads and a 32-bit index, whose divisions
+// cost less than 64-bit ones.
+
 // K4 and K5 would be bound by instruction throughput if they summed every
 // term: a sample's soft weight is non-zero for only two of the nb bins
 // (lo = floor(fbin) and lo + 1 mod nb), and the descriptor's spatial
@@ -77,8 +87,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // K6: threads per block
 constexpr int kSampleThreads = 192; // K1: threads per block (timed best of 64-512)
+constexpr int kSepThreads = 128;    // K6: threads per block (timed best of 128-384)
 constexpr int kSlotThreads = 1024; // K4, K5: most threads of a block
 constexpr float kTwoPi = 6.283185307179586f;
 
@@ -114,33 +124,50 @@ __device__ __forceinline__ bool sample_grad(const float* __restrict__ g, int h, 
   return inb;
 }
 
-// sample_grad's values from 12 loads, one for each distinct float it
-// reads.  Where a border test fails, the row above or below, or the column
-// left or right, is replaced by the corner's own (in the plane, and read
-// anyway), and the test discards the difference as grad_x and grad_y do.
-__device__ __forceinline__ bool sample_grad_12(const float* __restrict__ g, int h, int w,
-                                               float y, float x, float* dx, float* dy) {
-  const bool inb = (y >= 0.0f) && (y <= (float)(h - 1)) && (x >= 0.0f) && (x <= (float)(w - 1));
-  const float ymax = (float)((double)h - 1.000001);
-  const float xmax = (float)((double)w - 1.000001);
-  y = fminf(fmaxf(y, 0.0f), ymax);
-  x = fminf(fmaxf(x, 0.0f), xmax);
-  const int y0 = min((int)floorf(y), h - 2);
-  const int x0 = min((int)floorf(x), w - 2);
-  const float fy = y - (float)y0;
-  const float fx = x - (float)x0;
+// One axis of a sample point, as sample_grad computes it: whether v lies
+// in [0, n - 1] before clipping, the corner i0 = min(floor(v), n - 2) of v
+// clipped to [0, n - 1.000001], the fraction f = v - i0, and the steps to
+// the neighbours i0 - 1 and i0 + 2 that the central differences read: lo =
+// -1 and hi = 2 inside, lo = 0 or hi = 1 (the corner's own row or column)
+// where that neighbour is beyond the border.  The border tests of
+// grad_x/grad_y follow from the steps: i0 > 0 is lo != 0, and i0 + 1 < n - 1
+// is hi == 2 (i0 <= n - 2 always).
+struct Axis {
+  int i0, lo, hi;
+  float f;
+  bool in;
+};
 
-  const float* r0 = g + y0 * w + x0;              // rows y0 and y0 + 1 at column x0
+__device__ __forceinline__ Axis axis(float v, int n) {
+  Axis a;
+  a.in = (v >= 0.0f) && (v <= (float)(n - 1));
+  const float vmax = (float)((double)n - 1.000001);
+  v = fminf(fmaxf(v, 0.0f), vmax);
+  a.i0 = min((int)floorf(v), n - 2);
+  a.f = v - (float)a.i0;
+  a.lo = a.i0 > 0 ? -1 : 0;
+  a.hi = a.i0 + 2 < n ? 2 : 1;
+  return a;
+}
+
+// sample_grad's values from 12 loads, one for each distinct float it
+// reads.  r0 points at the corner (y0, x0) of a plane with row pitch w;
+// (ylo, yhi) and (xlo, xhi) are the Axis steps.  Where a border test fails,
+// the row above or below, or the column left or right, is the corner's own
+// (in the plane, and read anyway), and the test discards the difference as
+// grad_x and grad_y do.
+__device__ __forceinline__ void grad_12(const float* __restrict__ r0, int w,
+                                        int ylo, int yhi, int xlo, int xhi,
+                                        float fy, float fx, float* dx, float* dy) {
   const float* r1 = r0 + w;
-  const float* up = y0 > 0 ? r0 - w : r0;         // row y0 - 1
-  const float* dn = y0 + 2 < h ? r1 + w : r1;     // row y0 + 2
-  const int cl = x0 > 0 ? -1 : 0, cr = x0 + 2 < w ? 2 : 1;   // columns x0 - 1, x0 + 2
+  const float* up = r0 + ylo * w;                 // row y0 - 1
+  const float* dn = r0 + yhi * w;                 // row y0 + 2
   const float u0 = up[0], u1 = up[1];
-  const float a_ = r0[cl], a0 = r0[0], a1 = r0[1], a2 = r0[cr];
-  const float b_ = r1[cl], b0 = r1[0], b1 = r1[1], b2 = r1[cr];
+  const float a_ = r0[xlo], a0 = r0[0], a1 = r0[1], a2 = r0[xhi];
+  const float b_ = r1[xlo], b0 = r1[0], b1 = r1[1], b2 = r1[xhi];
   const float d0 = dn[0], d1 = dn[1];
-  const bool cx0 = x0 > 0 && x0 < w - 1, cx1 = x0 + 1 < w - 1;
-  const bool cy0 = y0 > 0 && y0 < h - 1, cy1 = y0 + 1 < h - 1;
+  const bool cx0 = xlo != 0, cx1 = xhi == 2;
+  const bool cy0 = ylo != 0, cy1 = yhi == 2;
   const float gx00 = cx0 ? 0.5f * (a1 - a_) : 0.0f, gx01 = cx1 ? 0.5f * (a2 - a0) : 0.0f;
   const float gx10 = cx0 ? 0.5f * (b1 - b_) : 0.0f, gx11 = cx1 ? 0.5f * (b2 - b0) : 0.0f;
   const float gy00 = cy0 ? 0.5f * (b0 - u0) : 0.0f, gy01 = cy0 ? 0.5f * (b1 - u1) : 0.0f;
@@ -149,7 +176,14 @@ __device__ __forceinline__ bool sample_grad_12(const float* __restrict__ g, int 
   const float ux = 1.0f - fx, uy = 1.0f - fy;
   *dx = (gx00 * ux + gx01 * fx) * uy + (gx10 * ux + gx11 * fx) * fy;
   *dy = (gy00 * ux + gy01 * fx) * uy + (gy10 * ux + gy11 * fx) * fy;
-  return inb;
+}
+
+// K1's sampling: sample_grad's values and inb from the 12 loads.
+__device__ __forceinline__ bool sample_grad_12(const float* __restrict__ g, int h, int w,
+                                               float y, float x, float* dx, float* dy) {
+  const Axis ay = axis(y, h), ax = axis(x, w);
+  grad_12(g + ay.i0 * w + ax.i0, w, ay.lo, ay.hi, ax.lo, ax.hi, ay.f, ax.f, dx, dy);
+  return ay.in && ax.in;
 }
 
 __device__ __forceinline__ const float* level(const float* gauss, const int32_t* lvl,
@@ -188,25 +222,32 @@ sample_grad_kernel(const float* __restrict__ gauss,
   dy[i] = vy;
 }
 
-__global__ void sample_grad_sep_kernel(const float* __restrict__ gauss,
-                                       const int32_t* __restrict__ lvl,
-                                       const float* __restrict__ ys_rows,
-                                       const float* __restrict__ xs_cols,
-                                       float* __restrict__ dx,
-                                       float* __restrict__ dy,
-                                       uint8_t* __restrict__ inb,
-                                       int L, int h, int w, long long total,
-                                       int GR, int GC) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int n = (int)(i / (GR * GC));
-  const int rc = (int)(i % (GR * GC));
-  const float* g = level(gauss, lvl, n, L, h, w);
+// K6: a thread per sample, in output order, so the stores coalesce; the
+// index is 32-bit (the wrapper keeps N * GR * GC and L * H * W under 2^31).
+// A warp's samples lie on about three rows and twelve columns of one slot,
+// so their loads of ys_rows and xs_cols are broadcasts.
+__global__ void __launch_bounds__(kSepThreads)
+sample_grad_sep_kernel(const float* __restrict__ gauss,
+                       const int32_t* __restrict__ lvl,
+                       const float* __restrict__ ys_rows,
+                       const float* __restrict__ xs_cols,
+                       float* __restrict__ dx,
+                       float* __restrict__ dy,
+                       uint8_t* __restrict__ inb,
+                       int L, int h, int w, int N, int GR, int GC) {
+  const int S = GR * GC;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N * S) return;
+  const int n = i / S, rc = i - n * S;
+  const int r = rc / GC, c = rc - r * GC;
+  const int l = min(max(lvl[n], 0), L - 1);
+  const Axis ay = axis(ys_rows[n * GR + r], h), ax = axis(xs_cols[n * GC + c], w);
   float vx, vy;
-  inb[i] = sample_grad(g, h, w, ys_rows[(size_t)n * GR + rc / GC],
-                       xs_cols[(size_t)n * GC + rc % GC], &vx, &vy);
+  grad_12(gauss + (l * h * w + ay.i0 * w + ax.i0), w, ay.lo, ay.hi, ax.lo, ax.hi, ay.f, ax.f,
+          &vx, &vy);
   dx[i] = vx;
   dy[i] = vy;
+  inb[i] = ay.in && ax.in;
 }
 
 // The (fractional bin, weight) of one sample of slot n: theta0 - angle
@@ -416,11 +457,11 @@ extern "C" int cusift_sample_grad_patches_sep(const void* gauss, const void* lvl
                                               void* dx, void* dy, void* inb,
                                               int L, int H, int W, int N, int GR, int GC,
                                               void* stream) {
-  const long long total = (long long)N * GR * GC;
-  sample_grad_sep_kernel<<<blocks_for(total, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+  sample_grad_sep_kernel<<<blocks_for((long long)N * GR * GC, kSepThreads), kSepThreads, 0,
+                           (cudaStream_t)stream>>>(
       (const float*)gauss, (const int32_t*)lvl, (const float*)ys_rows,
       (const float*)xs_cols, (float*)dx, (float*)dy, (uint8_t*)inb,
-      L, H, W, total, GR, GC);
+      L, H, W, N, GR, GC);
   return (int)cudaGetLastError();
 }
 

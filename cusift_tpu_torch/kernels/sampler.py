@@ -18,9 +18,9 @@ float32: the TPU tiling (patch sizes, (8, 128) corner rounding, slot group
 G), the bf16 dots and the polynomial atan2 have no meaning on the GPU and
 are not carried over.
 
-What bounds them on the H100: the bytes of the level stack and of the
-per-sample inputs, and the latency of the scattered corner loads (K1
-loads each of a sample's 12 distinct floats once).  K4 and
+What bounds them on the H100: the bytes of the level pixels the points
+read and of the per-sample inputs, and the latency of the scattered corner
+loads (K1 and K6 load each of a sample's 12 distinct floats once).  K4 and
 K5 add a histogram per slot whose dense form is ~96% exact zeros (a
 sample weighs on two of nb bins; the descriptor's spatial weights are
 ~86% zeros), so they sum only the non-zero terms, in the order and with
@@ -220,6 +220,10 @@ def sample_grad_patches_sep(gauss: torch.Tensor, lvl: torch.Tensor,
         raise ValueError(f"sample_grad_patches_sep: shapes lvl {tuple(lvl.shape)}, "
                          f"ys_rows {tuple(ys_rows.shape)}, xs_cols {tuple(xs_cols.shape)}")
     gc = xs_cols.shape[1]
+    if n * gr * gc >= 2**31 or l * h * w >= 2**31:
+        raise ValueError(f"sample_grad_patches_sep: {n} slots of {gr} x {gc} on a "
+                         f"{l} x {h} x {w} stack: the kernel's 32-bit index takes fewer "
+                         "than 2^31 samples and pixels")
     dx = torch.empty((n, gr * gc), dtype=f32, device=gauss.device)
     dy = torch.empty_like(dx)
     inb = torch.empty((n, gr * gc), dtype=torch.bool, device=gauss.device)

@@ -7,7 +7,8 @@ runs on its own:
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider --noconftest
 
 Tolerances: K1 and K6 atol 1e-5 on in-image samples (float32, same
-formula, FMA contraction only); K2 atol 1e-5 on the scores (float32 dot
+formula, FMA contraction only); `extract_batch` equals per-frame
+`extract` exactly; K2 atol 1e-5 on the scores (float32 dot
 products of unit vectors in another summation order), and the index may
 differ only where the plain top-2 is a near tie; K3 atol 1e-5 on levels
 and DoG (float32 sums of another order), score masks equal on >= 99.99% of
@@ -433,19 +434,91 @@ def test_desc_raw_kernel_bin_edges(dev):
     assert not bool(raw[3].any()) and bool(torch.isfinite(raw).all())
 
 
-@pytest.mark.parametrize("n,gr,gc", [(3072, 12, 12), (33, 5, 7)])
-def test_sep_sampler_kernel_matches_plain(dev, n, gr, gc):
-    rng = np.random.default_rng(7)
-    gauss, lvl, ys, xs = _points(rng, dev, 3, 240, 320, n, max(gr, gc), 30.0)
+def _sep_case(case, rng, dev):
+    """(gauss, lvl, ys_rows, xs_cols) of one K6 card case."""
+    import chip_smoke
+
+    L, H, W = 3, 240, 320
+    if case == "orientation":                      # the grid K6 serves on the path
+        gauss = torch.from_numpy(rng.normal(size=(L, H, W)).astype(np.float32)).to(dev)
+        return (gauss, *chip_smoke.orientation_rows(rng, dev, 384, L, H, W))
+    n, gr, gc = {"n1": (1, 12, 12), "gr_ne_gc": (33, 5, 7), "tall": (50, 40, 3),
+                 "s1": (301, 1, 1), "s600": (9, 20, 30), "ragged": (1001, 12, 12),
+                 "h2": (40, 12, 12), "w2": (40, 12, 12)}.get(case, (3072, 12, 12))
+    H, W = {"h2": (2, 64), "w2": (64, 2)}.get(case, (H, W))
+    gauss, lvl, ys, xs = _points(rng, dev, L, H, W, n, max(gr, gc), 30.0)
     ys_rows, xs_cols = ys[:, :gr].contiguous(), xs[:, :gc].contiguous()
+    if case == "border":                           # rows and columns on the borders
+        ys_rows[::2, ::3] = 0.0
+        ys_rows[1::2, ::3] = H - 1.0
+        ys_rows[::4, 1::3] = H - 1.5
+        xs_cols[1::2, ::2] = W - 1.0
+        xs_cols[::4, 1::4] = 0.0
+        xs_cols[::3, 3] = W - 2.0
+    if case == "outside":                          # whole grids off the image
+        ys_rows[:100] -= H + 40.0
+        xs_cols[100:200] += W + 40.0
+        ys_rows[200:300] += H + 40.0
+    if case == "nan":
+        ys_rows[5:9, ::3] = float("nan")
+        ys_rows[9] = float("nan")
+        xs_cols[13:17, ::4] = float("nan")
+        xs_cols[17:21, ::5] = float("inf")
+        ys_rows[21:25, ::2] = -float("inf")
+    return gauss, lvl, ys_rows, xs_cols
+
+
+@pytest.mark.parametrize("case", ["random", "orientation", "border", "outside", "nan",
+                                  "gr_ne_gc", "tall", "n1", "s1", "s600", "ragged", "h2",
+                                  "w2"])
+def test_sep_sampler_kernel_matches_plain(dev, case):
+    """K6 against its plain version (inb equal, atol 1e-5 on in-image
+    samples) at random rows and columns, the orientation grid of the
+    separable path, rows and columns on the borders, grids wholly outside
+    the image, NaN and inf rows and columns, GR != GC and tall grids, one
+    sample a slot, 600 samples a slot, N = 1 and a ragged last block, h = 2
+    and w = 2; reruns are bit-identical."""
+    rng = np.random.default_rng(7)
+    gauss, lvl, ys_rows, xs_cols = _sep_case(case, rng, dev)
+    n, gr, gc = ys_rows.shape + xs_cols.shape[1:]
     before = k1.sep_launches
-    dx, dy, inb = k1.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols)
-    assert k1.sep_launches == before + 1 and dx.shape == (n, gr * gc)
+    out = k1.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols)
+    assert k1.sep_launches == before + 1 and out[0].shape == (n, gr * gc)
     rdx, rdy, rinb = k1.sample_grad_patches_sep_plain(gauss, lvl, ys_rows, xs_cols)
     torch.cuda.synchronize()
-    assert torch.equal(inb, rinb)
-    torch.testing.assert_close(dx[rinb], rdx[rinb], atol=1e-5, rtol=0)
-    torch.testing.assert_close(dy[rinb], rdy[rinb], atol=1e-5, rtol=0)
+    assert torch.equal(out[2], rinb)
+    torch.testing.assert_close(out[0][rinb], rdx[rinb], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out[1][rinb], rdy[rinb], atol=1e-5, rtol=0)
+    again = k1.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_sep_sampler_rejects_what_it_cannot_index(dev):
+    """K6 indexes in 32 bits: 2^16 slots of 182 x 182 samples are refused."""
+    g = torch.zeros(1, 8, 8, device=dev)
+    n = 2**16
+    lvl = torch.zeros(n, dtype=torch.int32, device=dev)
+    grid = torch.zeros(n, 182, device=dev)
+    with pytest.raises(ValueError, match="2\\^31"):
+        k1.sample_grad_patches_sep(g, lvl, grid, grid)
+
+
+def test_extract_batch_matches_extract_per_frame(dev):
+    """The default (chain) path's extract_batch of a [4, 240, 320] batch
+    equals extract of each frame on the card, every field slot by slot,
+    though cuDNN gets the whole batch."""
+    from cusift_tpu_torch.data.synthetic import textured_image
+    from cusift_tpu_torch.models.sift import extract, extract_batch
+
+    cfg = SiftConfig(max_kpts=512, max_kpts_per_octave=256)
+    imgs = torch.from_numpy(np.stack([textured_image(240, 320, seed=s)
+                                      for s in range(4)])).to(dev)
+    batch = extract_batch(imgs, cfg)
+    assert int(batch.valid.sum()) > 100
+    for i in range(imgs.shape[0]):
+        one = extract(imgs[i], cfg)
+        for name, a, b in zip(one._fields, batch, one):
+            assert torch.equal(a[i], b), (i, name)
 
 
 def _big_radius_sigma0(r=32):

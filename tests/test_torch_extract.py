@@ -114,3 +114,16 @@ def test_extract_batch_is_per_frame(test_image):
         for name, a, b in zip(one._fields, batch, one):
             assert torch.equal(a[i], b), name
 
+
+
+@pytest.mark.parametrize("entry", ["extract", "extract_batch"])
+def test_unknown_fused_pyramid_raises(test_image, entry):
+    """The port rejects a fused_pyramid it does not know, where the
+    reference quietly builds the XLA pyramid (an accepted divergence)."""
+    from cusift_tpu_torch import SiftConfig as TorchSiftConfig
+
+    cfg = TorchSiftConfig(max_kpts=128, max_kpts_per_octave=64, num_octaves=2,
+                          fused_pyramid="palas")
+    img = _t(test_image[:96, :128])
+    with pytest.raises(ValueError, match="unknown fused_pyramid 'palas'"):
+        getattr(tsift, entry)(img if entry == "extract" else img[None], cfg)

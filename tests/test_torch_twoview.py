@@ -1,10 +1,11 @@
 """Port two-view geometry (cusift_tpu_torch/ops/geometry.py, ransac.py,
 models/twoview.py, data/synthetic.py) against the JAX package.
 
-The DLT solve is fed the same one-hot weights (indices drawn in numpy) and
-agrees to rtol 1e-4.  RANSAC draws its samples from a torch generator,
-which cannot reproduce jax's threefry stream, so `match_pair` is held on
-its outcome: corner transfer under 2 px against the true homography (the
+The DLT solve is fed the same one-hot weights (indices drawn in numpy);
+each package's minimal solve is held to a float64 DLT within a bound that
+grows with the sample's condition, and a non-minimal solve agrees to rtol
+1e-4.  RANSAC draws its samples from a torch generator, which cannot
+reproduce jax's threefry stream, so `match_pair` is held on its outcome: corner transfer under 2 px against the true homography (the
 bound of the two-view drive), and the all-zero image probe.
 """
 
@@ -48,25 +49,56 @@ def _points(rng, n=64):
     return pa, pb
 
 
+def _normalise64(x):
+    """Hartley normalisation in float64 (the packages' unit weights)."""
+    c = x.mean(0)
+    s = np.sqrt(2) / np.linalg.norm(x - c, axis=1).mean()
+    return (x - c) * s, np.array([[s, 0, -s * c[0]], [0, s, -s * c[1]], [0, 0, 1]])
+
+
+def _dlt_rows(pan, pbn):
+    """The 8 x 8 DLT system A h8 = b of 4 normalised correspondences."""
+    rows = [[xa, ya, 1, 0, 0, 0, -xb * xa, -xb * ya] for (xa, ya), (xb, _) in zip(pan, pbn)]
+    rows += [[0, 0, 0, xa, ya, 1, -yb * xa, -yb * ya] for (xa, ya), (_, yb) in zip(pan, pbn)]
+    return np.array(rows), np.concatenate([pbn[:, 0], pbn[:, 1]])
+
+
 def _dlt_condition(pa, pb):
     """float64 condition number of the normalised 4-point DLT normal matrix."""
-    def norm(x):
-        c = x.mean(0)
-        return (x - c) * np.sqrt(2) / np.linalg.norm(x - c, axis=1).mean()
-    rows = []
-    for (xa, ya), (xb, yb) in zip(norm(pa.astype(np.float64)),
-                                  norm(pb.astype(np.float64))):
-        rows += [[xa, ya, 1, 0, 0, 0, -xb * xa, -xb * ya],
-                 [0, 0, 0, xa, ya, 1, -yb * xa, -yb * ya]]
-    a = np.array(rows)
+    a, _ = _dlt_rows(_normalise64(pa.astype(np.float64))[0],
+                     _normalise64(pb.astype(np.float64))[0])
     return np.linalg.cond(a.T @ a)
 
 
-def test_solve_homography_matches_jax_on_onehot_weights(rng):
+def _dlt64(pa, pb):
+    """The minimal homography of 4 correspondences, solved in float64 with
+    the packages' normalisation and h33 = 1 gauge."""
+    pan, ta = _normalise64(pa.astype(np.float64))
+    pbn, tb = _normalise64(pb.astype(np.float64))
+    h8 = np.linalg.solve(*_dlt_rows(pan, pbn))
+    h = np.linalg.inv(tb) @ np.append(h8, 1.0).reshape(3, 3) @ ta
+    return h / h[2, 2]
+
+
+# A float32 minimal solve lands within C_MINIMAL * 2^-23 * cond(A^T A) of
+# the float64 one, relative to max |H|: over 8,745 samples with 4 distinct
+# indices (300 seeds of these inputs, 1, 2 and 6 torch threads alike) the
+# worst margin was 70.9, and 8.2 for the inputs below
+# (tools/dlt_margins.py); 128 leaves room for another CPU's summation
+# order without tracking it.
+C_MINIMAL = 128.0
+
+
+def test_solve_homography_matches_jax_on_onehot_weights():
     """Same one-hot weights in both packages (and the gathered 4-point form
     the port's RANSAC uses).  A minimal DLT solve in float32 loses digits
-    in proportion to its normal matrix's condition, so each sample is held
-    to rtol max(1e-4, 1e-6 * cond); a non-minimal weighted solve to 1e-4."""
+    in proportion to its normal matrix's condition, so each package's solve
+    of a sample with 4 distinct indices is held to a float64 DLT of the
+    same points within C_MINIMAL * 2^-23 * cond (relative to max |H|), and
+    the two packages to each other within twice that.  The inputs come
+    from their own seed, not from a generator other tests share.  A
+    non-minimal weighted solve is held to 1e-4."""
+    rng = np.random.default_rng(0)
     pa, pb = _points(rng)
     idx = rng.integers(0, 64, (32, 4))
     w = np.asarray(jax.vmap(lambda i: _onehot_weights(i, 64))(jnp.asarray(idx)))
@@ -83,10 +115,13 @@ def test_solve_homography_matches_jax_on_onehot_weights(rng):
     ok = np.array([len(set(i)) == 4 for i in idx])
     assert ok.sum() > 25 and np.isfinite(ref[ok]).all()
     for i in np.where(ok)[0]:
-        rtol = max(1e-4, 1e-6 * _dlt_condition(pa[idx[i]], pb[idx[i]]))
-        scale = np.abs(ref[i]).max()
-        assert np.abs(dense[i] - ref[i]).max() <= rtol * scale, i
-        assert np.abs(gathered[i] - ref[i]).max() <= rtol * scale, i
+        truth = _dlt64(pa[idx[i]], pb[idx[i]])
+        tol = C_MINIMAL * 2.0 ** -23 * _dlt_condition(pa[idx[i]], pb[idx[i]])
+        scale = np.abs(truth).max()
+        for name, got in (("jax", ref[i]), ("dense", dense[i]), ("gathered", gathered[i])):
+            assert np.abs(got - truth).max() <= tol * scale, (i, name)
+        assert np.abs(dense[i] - ref[i]).max() <= 2 * tol * scale, i
+        assert np.abs(gathered[i] - ref[i]).max() <= 2 * tol * scale, i
     wall = rng.random(64).astype(np.float32)
     ref_all = np.asarray(jgeo.solve_homography(jnp.asarray(pa), jnp.asarray(pb),
                                                jnp.asarray(wall)))
@@ -95,7 +130,13 @@ def test_solve_homography_matches_jax_on_onehot_weights(rng):
     np.testing.assert_allclose(got_all, ref_all, rtol=1e-4, atol=1e-7)
 
 
-def test_geometry_helpers_match_jax(rng):
+def test_geometry_helpers_match_jax():
+    """Elementwise helpers agree to rtol 1e-5 (1e-6 for the DLT rows).
+    The inputs come from their own seed: `apply_homography`'s relative
+    bound fails where a mapped point lands near 0, which some seeds of
+    these inputs give, so inputs drawn from a generator other tests advance
+    made the test depend on the files run before it."""
+    rng = np.random.default_rng(0)
     pa, pb = _points(rng)
     w = rng.random(64).astype(np.float32)
     h = np.array([[1.1, 0.1, 3.0], [-0.2, 0.9, 1.0], [1e-4, 2e-4, 1.0]], np.float32)

@@ -1,6 +1,7 @@
 """Hold K1, K4, K5 and K6 against the same kernels built from another sampler source.
 
-    PYTHONPATH=. python tools/compare_hist_kernels.py OLD_SAMPLER_CU
+    PYTHONPATH=. python tools/compare_hist_kernels.py OLD_SAMPLER_CU [--new NEW_SAMPLER_CU]
+                                                     [--kernels k1,k4,k5,k6]
 
 OLD_SAMPLER_CU is a `cusift_tpu_torch/csrc/sampler.cu` whose entry points
 take the arguments the current ones do:
@@ -16,7 +17,10 @@ take the arguments the current ones do:
 for example an earlier commit's, written out with `git show
 <commit>:cusift_tpu_torch/csrc/sampler.cu > trace/sampler_old.cu`.  The
 script builds it with nvcc into `--build-dir` (default `trace/old_sampler`,
-git-ignored) and runs both forms on the same inputs:
+git-ignored) and runs both forms on the same inputs.  "New" is the
+package's own build, or with `--new` another source with the same entry
+points (a variant under trial), built beside the old one.  `--kernels`
+picks the kernels compared (default all):
 
   * K1 (dx, dy and inb) at `chip_smoke.py`'s phase-3 shape (L=3, 960x1280,
     N=3840, S=144, random points within 25 px of each centre, border and
@@ -25,8 +29,11 @@ git-ignored) and runs both forms on the same inputs:
     width, N = 1, half the slots spread over 200 px, and at each of the 20
     launches of one two-view pair (`chip_smoke.py`'s main path, whose
     inputs are recorded as it runs), with their sum;
-  * K6 at `chip_smoke.py`'s shape (N=3072 slots of 12 x 12), since it
-    shares the sampling function of K4 and K5;
+  * K6 at `chip_smoke.py`'s random shape (N=3072 slots of 12 x 12), at the
+    orientation grid of the separable path at its five octave shapes and
+    slot budgets (with their sum, one image's five launches), and on rows
+    and columns on the borders, NaN and inf rows and columns, GR != GC,
+    N = 1, one sample a slot and 600 samples a slot;
   * K4 and K5 at `chip_smoke.py`'s shapes (the batch's five octaves; K5
     with the descriptor's spatial weights, and at octave 0 also with a
     dense random matrix; a few slots with NaN points).
@@ -58,9 +65,9 @@ OLD_SIGNATURES = {name: _build.SIGNATURES[name] for name in (
     "cusift_sample_desc_raw")}
 
 
-def build_old(src: Path, build_dir: Path) -> ctypes.CDLL:
+def build(src: Path, build_dir: Path, stem: str) -> ctypes.CDLL:
     build_dir.mkdir(parents=True, exist_ok=True)
-    out = build_dir / "libold_sampler.so"
+    out = build_dir / f"lib{stem}.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
                     str(src)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
@@ -143,50 +150,69 @@ def _pair_launches(dev) -> list[tuple]:
     return got
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("old_source", type=Path)
-    ap.add_argument("--build-dir", type=Path, default=Path("trace/old_sampler"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("compare_hist_kernels: no CUDA device", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda", 0)
-    lib = build_old(args.old_source, args.build_dir)
-    gen = np.random.default_rng(0)
-    sms = k._sm_count(dev.index)
-    cases = []
+def _k6_cases(gen, dev):
+    """(label, gauss, lvl, ys_rows, xs_cols) of each K6 case."""
+    L, G = 3, 12
+    (H, W), N = cs.OCTAVE_SHAPES[0], cs.ORI_SLOTS[0]
+    gauss, lvl, ys, xs = cs._points(gen, dev, L, H, W, N, G)
+    yield "k6 N3072 12x12", gauss, lvl, ys, xs.flip(1).contiguous()
+    for o, ((h, w), n) in enumerate(zip(cs.OCTAVE_SHAPES, cs.ORI_SLOTS)):
+        g = torch.from_numpy(gen.random((L, h, w), dtype=np.float32)).to(dev)
+        yield (f"k6 orientation octave{o} N{n}", g, *cs.orientation_rows(gen, dev, n, L, h, w))
+    ys_rows, xs_cols = ys.clone(), xs.clone()
+    ys_rows[::2, ::3] = 0.0
+    ys_rows[1::2, ::3] = H - 1.0
+    xs_cols[::3, 1::4] = W - 1.0
+    xs_cols[1::3, 2::4] = 0.5
+    yield "k6 border", gauss, lvl, ys_rows, xs_cols
+    ys_rows, xs_cols = ys.clone(), xs.clone()
+    ys_rows[20:24, ::3] = float("nan")
+    ys_rows[24] = float("nan")
+    xs_cols[28:32, ::5] = float("inf")
+    ys_rows[32:36, ::2] = -float("inf")
+    yield "k6 nan_inf", gauss, lvl, ys_rows, xs_cols
+    for tag, (n, gr, gc) in (("5x7", (1001, 5, 7)), ("n1", (1, 12, 12)), ("s1", (777, 1, 1)),
+                             ("20x30", (99, 20, 30))):
+        g, lv, y, x = cs._points(gen, dev, L, 240, 320, n, max(gr, gc))
+        yield f"k6 {tag}", g, lv, y[:, :gr].contiguous(), x[:, :gc].contiguous()
 
-    for label, gauss, lvl, ys, xs in _k1_cases(gen, dev):
-        (l, h, w), (n, s) = gauss.shape, ys.shape
-        out = (torch.empty((n, s), device=dev), torch.empty((n, s), device=dev),
-               torch.empty((n, s), dtype=torch.bool, device=dev))
-        cases.append(_compare(
-            label, lambda: k.sample_grad_patches(gauss, lvl, ys, xs),
-            lambda: (_old_call(lib, "cusift_sample_grad_patches",
-                               *k._ptrs(gauss, lvl, ys, xs, *out), l, h, w, n, s), out)[1],
-            shape=f"L{l}x{h}x{w},N{n},S{s}"))
-    pair = [c for c in cases if c["case"].startswith("k1 pair")]
-    pair_ms = dict(old_ms=[sum(c["old_ms"][j] for c in pair) for j in (0, 1)],
-                   new_ms=[sum(c["new_ms"][j] for c in pair) for j in (0, 1)])
-    cs.log("compare", case="k1 pair sum", launches=len(pair),
-           old_ms=",".join(f"{v:.4f}" for v in pair_ms["old_ms"]),
-           new_ms=",".join(f"{v:.4f}" for v in pair_ms["new_ms"]))
 
-    # K6 shares K4's and K5's sampling function: its bits at chip_smoke.py's shape
-    gauss, lvl, ys, xs = cs._points(gen, dev, 3, 960, 1280, 3072, 12)
-    ys_rows, xs_cols = ys, xs.flip(1).contiguous()
-    n = ys.shape[0]
-    out = (torch.empty((n, 144), device=dev), torch.empty((n, 144), device=dev),
-           torch.empty((n, 144), dtype=torch.bool, device=dev))
-    cases.append(_compare(
-        "k6 N3072 12x12", lambda: k.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols),
-        lambda: (_old_call(lib, "cusift_sample_grad_patches_sep",
-                           *k._ptrs(gauss, lvl, ys_rows, xs_cols, *out), 3, 960, 1280, n, 12,
-                           12), out)[1]))
+def _call(lib, name, args, outs):
+    """fn() that runs the C entry `name` of lib on args and returns outs."""
+    return lambda: (_old_call(lib, name, *args), outs)[1]
 
+
+def _sampling_compares(label, lib, new_lib, name, wrapper, inputs, dims, out_shape,
+                       shape) -> dict:
+    """K1 or K6: the new form (the package's wrapper, or new_lib's entry)
+    against lib's entry on the same inputs; dims are the entry's ints."""
+    n, s = out_shape
+    dev = inputs[0].device
+    outs = [(torch.empty((n, s), device=dev), torch.empty((n, s), device=dev),
+             torch.empty((n, s), dtype=torch.bool, device=dev)) for _ in range(2)]
+    new_fn = (lambda: wrapper(*inputs)) if new_lib is None else _call(
+        new_lib, name, (*k._ptrs(*inputs, *outs[0]), *dims), outs[0])
+    return _compare(label, new_fn, _call(lib, name, (*k._ptrs(*inputs, *outs[1]), *dims),
+                                         outs[1]),
+                    shape=shape)
+
+
+def _summed(cases, prefix, label) -> dict:
+    """old and new times of the cases whose label starts with prefix, summed."""
+    picked = [c for c in cases if c["case"].startswith(prefix)]
+    ms = {key: [sum(c[key][j] for c in picked) for j in (0, 1)] for key in ("old_ms", "new_ms")}
+    cs.log("compare", case=label, launches=len(picked),
+           old_ms=",".join(f"{v:.4f}" for v in ms["old_ms"]),
+           new_ms=",".join(f"{v:.4f}" for v in ms["new_ms"]))
+    return ms
+
+
+def _hist_compares(gen, dev, lib, kernels) -> list[dict]:
+    """K4 and K5 at the batch's five octave shapes against lib's."""
     L, S = 3, 144
+    sms = k._sm_count(dev.index)
     _, wsp, gw = (torch.from_numpy(a).to(dev) for a in _spatial_weights(12, 4))
+    cases = []
     for o, ((H, W), n4, n5) in enumerate(zip(cs.OCTAVE_SHAPES, cs.ORI_SLOTS,
                                              cs.DESC_SLOTS)):
         gauss, lvl, ys, xs = cs._points(gen, dev, L, H, W, n4, S)
@@ -194,11 +220,11 @@ def main() -> int:
         wv = torch.from_numpy(gen.uniform(0, 1, (n4, S)).astype(np.float32)).to(dev)
         hist = torch.empty((n4, 36), device=dev)
         p4 = k._plan_args(k._launch_plan(n4, S, None, sms))
-        cases.append(_compare(
-            f"k4 octave{o} N{n4}", lambda: (k.sample_ori_hist(gauss, lvl, ys, xs, wv, 36),),
-            lambda: (_old_call(lib, "cusift_sample_ori_hist",
-                               *k._ptrs(gauss, lvl, ys, xs, wv, hist), L, H, W, n4, S, 36,
-                               *p4), (hist,))[1]))
+        if "k4" in kernels:
+            cases.append(_compare(
+                f"k4 octave{o} N{n4}", lambda: (k.sample_ori_hist(gauss, lvl, ys, xs, wv, 36),),
+                _call(lib, "cusift_sample_ori_hist", (*k._ptrs(gauss, lvl, ys, xs, wv, hist),
+                                                      L, H, W, n4, S, 36, *p4), (hist,))))
 
         gauss, lvl, ys, xs = cs._points(gen, dev, L, H, W, n5, S)
         ys[20:24] = float("nan")
@@ -209,16 +235,59 @@ def main() -> int:
                 gen.uniform(0, 1, (S, 16)).astype(np.float32)).to(dev), torch.from_numpy(
                 gen.uniform(0, 1, (n5, S)).astype(np.float32)).to(dev)))
         p5 = k._plan_args(k._launch_plan(n5, S, 16, sms))
-        for tag, w_sp, wv in weights:
+        for tag, w_sp, wv in weights if "k5" in kernels else ():
             raw = torch.empty((n5, 8, 16), device=dev)
             cases.append(_compare(
                 f"k5 octave{o} N{n5} {tag}",
                 lambda: (k.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, w_sp, 8),),
-                lambda: (_old_call(lib, "cusift_sample_desc_raw",
-                                   *k._ptrs(gauss, lvl, ys, xs, theta, wv, w_sp, raw),
-                                   L, H, W, n5, S, 8, 16, *p5), (raw,))[1]))
+                _call(lib, "cusift_sample_desc_raw",
+                      (*k._ptrs(gauss, lvl, ys, xs, theta, wv, w_sp, raw),
+                       L, H, W, n5, S, 8, 16, *p5), (raw,))))
+    return cases
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("old_source", type=Path)
+    ap.add_argument("--new", type=Path, default=None,
+                    help="a sampler source to build as the new form (K1 and K6 only; "
+                         "default: the package's build)")
+    ap.add_argument("--kernels", default="k1,k4,k5,k6")
+    ap.add_argument("--build-dir", type=Path, default=Path("trace/old_sampler"))
+    args = ap.parse_args()
+    kernels = set(args.kernels.split(","))
+    if args.new is not None and kernels & {"k4", "k5"}:
+        ap.error("--new compares K1 and K6 only")
+    if not torch.cuda.is_available():
+        print("compare_hist_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    lib = build(args.old_source, args.build_dir, "old_sampler")
+    new_lib = build(args.new, args.build_dir, "new_sampler") if args.new else None
+    gen = np.random.default_rng(0)
+    cases, sums = [], {}
+
+    if "k1" in kernels:
+        for label, gauss, lvl, ys, xs in _k1_cases(gen, dev):
+            cases.append(_sampling_compares(
+                label, lib, new_lib, "cusift_sample_grad_patches", k.sample_grad_patches,
+                (gauss, lvl, ys, xs), (*gauss.shape, *ys.shape), ys.shape,
+                "L{}x{}x{},N{},S{}".format(*gauss.shape, *ys.shape)))
+        sums["k1_pair_sum"] = _summed(cases, "k1 pair", "k1 pair sum")
+    if "k6" in kernels:
+        for label, gauss, lvl, ys_rows, xs_cols in _k6_cases(gen, dev):
+            (n, gr), gc = ys_rows.shape, xs_cols.shape[1]
+            cases.append(_sampling_compares(
+                label, lib, new_lib, "cusift_sample_grad_patches_sep",
+                k.sample_grad_patches_sep, (gauss, lvl, ys_rows, xs_cols),
+                (*gauss.shape, n, gr, gc), (n, gr * gc),
+                "L{}x{}x{},N{},{}x{}".format(*gauss.shape, n, gr, gc)))
+        sums["k6_orientation_sum"] = _summed(cases, "k6 orientation",
+                                             "k6 orientation sum (one image's five octaves)")
+    if kernels & {"k4", "k5"}:
+        cases += _hist_compares(gen, dev, lib, kernels)
     print(cs.smi_line())
-    print(json.dumps({"cases": cases, "k1_pair_sum": pair_ms,
+    print(json.dumps({"cases": cases, **sums,
                       "all_bit_equal": all(c["bit_equal"] for c in cases)}))
     return 0
 
