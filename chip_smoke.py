@@ -44,7 +44,25 @@ Phases (one line each; any failure raises and exits non-zero):
      `extract` of each frame slot by slot, that the fused features cover
      the default config's on every frame, and the homography of the 4
      true pairs; then times 10 batches of both configurations;
- 12. the separable two-view path: `match_pair` with sampler="separable".
+ 12. the separable two-view path: `match_pair` with sampler="separable";
+ 13. RGB-D pair alignment: `align_rgbd_pair` on frames 0 and 2 of
+     `planar_rgbd_sequence(8, 480, 640, seed=2, motion_scale=0.6)` with the
+     SLAM path's SiftConfig, R and t against ground truth, K1/K2 launches,
+     10 timed runs;
+ 14. the RGB-D SLAM path: `Slam.run` on a 48-frame 480x640 orbit
+     (BASELINE configs[3]: 2048 keypoints, a 256-keyframe ring, fused and
+     deferred events, 5-keyframe window BA; the texture's detail bands
+     fill most of the keypoint slots), checking tracking, keyframes,
+     window BA, loop closure and ATE, with frames/s, ms per keyframe event
+     and K1/K2 launches per frame and per event (timed through Slam's
+     on_metric and on_event hooks, after an untimed 16-frame warm-up), and
+     the final map's graph solve timed with each solver; then a 20-frame
+     pass with an 8-keyframe ring, where eviction fires;
+ 15. K1 and K2 at the SLAM path's own inputs, kept from the warm-up: the
+     10 K1 calls of one frame's extraction (480x640 levels, no upscale,
+     1024 slots an octave) and K2's first tracking and first keyframe-event
+     call (2048 x 2048 with the frames' valid masks), each against its
+     plain version and timed beside its library yardstick.
 The line before the last is a JSON object with each kernel's launches on
 its path, its error against the plain version, its times and its bound;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device it
@@ -53,6 +71,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -76,6 +95,23 @@ K3_ATOL = 1e-5   # f32 blur sums in another order than cuDNN's
 K3_MASK = 0.9999  # score masks may differ where a near tie flips
 HIST_REL = 1e-4  # K4/K5: sums over 144 samples in another order, atan2f
 MAX_CORNER_ERR = 2.0   # px, the two-view drive's bound
+# the RGB-D SLAM path (BASELINE configs[3], `cli.py slam` on the synthetic
+# orbit): default SiftConfig, 2048 keypoints
+SLAM_SIFT = dict(max_kpts=2048, max_kpts_per_octave=1024)
+# the orbit: BASELINE configs[3]'s planar sequence, with the detail bands
+# that let a frame fill most of its 2048 keypoint slots (the reference
+# texture alone fills under a tenth of them)
+SLAM_SCENE = dict(seed=5, motion_scale=0.9, detail=0.25, detail_octaves=4)
+SLAM_FRAMES = 48
+WARMUP_FRAMES = 16      # an untimed first pass over the orbit's start
+# keyframe thresholds that make a 48-frame orbit close its loop; the rest
+# of SlamConfig stays at its defaults (kf_min_inliers = 60 is the default,
+# set for 2048 keypoints)
+SLAM_CFG = dict(kf_min_inliers=60, kf_max_translation=0.06, kf_max_rotation=0.06,
+                loop_temporal_gap=4, loop_min_score=0.05, loop_min_inliers=25)
+RIGID_R_ERR = 0.01     # tests/test_slam.py::test_rgbd_pair_alignment's bounds
+RIGID_T_ERR = 0.01     # m
+MAX_ATE = 0.05         # m, tests/test_slam.py's loop-closure bound
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores (same)
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores (same)
@@ -260,11 +296,12 @@ def path_points(gen, dev, kind, L=3, H=960, W=1280):
     return lvl, as_t(ys), as_t(xs)
 
 
-def library_yardstick(tag, gauss, lvl, ys, xs, dx, dy) -> dict:
+def library_yardstick(tag, gauss, lvl, ys, xs, dx, dy, mask=None) -> dict:
     """K1's and K6's library yardstick: one `grid_sample` over the gradient
     volume [1, 2, L, H, W], whose bilinear weights at an integer level fall
     on that level.  Times the call (the volume built outside it, and timed
-    beside it) and holds its output to the plain version's (dx, dy)."""
+    beside it) and holds its output to the plain version's (dx, dy), on
+    the samples `mask` marks (all by default)."""
     import torch.nn.functional as F
     from cusift_tpu_torch.ops.gaussian import image_gradients
 
@@ -277,7 +314,8 @@ def library_yardstick(tag, gauss, lvl, ys, xs, dx, dy) -> dict:
     call = lambda: F.grid_sample(vol, grid, mode="bilinear", padding_mode="border",
                                  align_corners=True)
     out = call()[0, :, 0]                                  # [2, N, S]
-    err = max((out[0] - dx).abs().max().item(), (out[1] - dy).abs().max().item())
+    m = torch.ones_like(dx, dtype=torch.bool) if mask is None else mask
+    err = max((out[0] - dx)[m].abs().max().item(), (out[1] - dy)[m].abs().max().item())
     if not err <= LIBRARY_ATOL:
         raise AssertionError(f"{tag} library: max |err| {err} > {LIBRARY_ATOL}")
     library_ms = time_ms(call, f"{tag} library")
@@ -366,46 +404,65 @@ def check_matcher(dev, gen: np.random.Generator, N=6144, M=6144) -> dict:
     for name, (qa, qb, qv) in cases.items():
         ta, tb = torch.from_numpy(qa).to(dev), torch.from_numpy(qb).to(dev)
         tv = torch.from_numpy(np.ascontiguousarray(qv)).to(dev)
-        top, idx = k2.top2(ta, tb, tv)
-        rtop, ridx = k2.top2_plain(ta, tb, tv)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(rtop)
-        if not torch.equal(fin, torch.isfinite(top)) or not torch.equal(
-                top[~fin], rtop[~fin]):
-            raise AssertionError(f"K2 {name}: -inf pattern differs")
-        err = (top - rtop)[fin].abs().max().item() if fin.any() else 0.0
-        gap = rtop[:, 0] - rtop[:, 1]
-        # the index may differ only where the plain top-2 is a near tie
-        bad = (idx != ridx) & ~(gap < K2_ATOL)
-        if not err <= K2_ATOL or bad.any():
-            raise AssertionError(f"K2 {name}: max |err| {err}, "
-                                 f"{int(bad.sum())} index mismatches")
-        worst = max(worst, err)
-        log("k2", case=name, shape=f"N{qa.shape[0]},M{qb.shape[0]}",
-            max_abs_err=err)
+        worst = max(worst, _k2_case(name, ta, tb, tv))
     ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
     tv = torch.from_numpy(vb).to(dev)
+    return dict(max_abs_err=worst, **_k2_timed("k2", ta, tb, tv))
+
+
+def _k2_case(name, ta, tb, tv) -> float:
+    """K2 once against its plain version: the -inf pattern equal, values
+    within K2_ATOL, the index equal but where the plain top-2 is a near
+    tie; returns the max |err|."""
+    from cusift_tpu_torch.kernels import matcher as k2
+
     top, idx = k2.top2(ta, tb, tv)
-    ms = time_ms(lambda: k2.top2(ta, tb, tv), "k2")
-    plain_ms = time_ms(lambda: k2.top2_plain(ta, tb, tv), "k2 plain")
+    rtop, ridx = k2.top2_plain(ta, tb, tv)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(rtop)
+    if not torch.equal(fin, torch.isfinite(top)) or not torch.equal(
+            top[~fin], rtop[~fin]):
+        raise AssertionError(f"K2 {name}: -inf pattern differs")
+    err = (top - rtop)[fin].abs().max().item() if fin.any() else 0.0
+    gap = rtop[:, 0] - rtop[:, 1]
+    bad = (idx != ridx) & ~(gap < K2_ATOL)
+    if not err <= K2_ATOL or bad.any():
+        raise AssertionError(f"K2 {name}: max |err| {err}, "
+                             f"{int(bad.sum())} index mismatches")
+    log("k2", case=name, shape=f"N{ta.shape[0]},M{tb.shape[0]}",
+        valid_b=int(tv.sum()), max_abs_err=err)
+    return err
+
+
+def _k2_timed(tag, ta, tb, tv) -> dict:
+    """K2's time, its plain version's and the library yardstick's on one
+    input, with its launch plan and bound."""
+    from cusift_tpu_torch.kernels import matcher as k2
+
+    (n, d), m = ta.shape, tb.shape[0]
+    top, idx = k2.top2(ta, tb, tv)
+    ms = time_ms(lambda: k2.top2(ta, tb, tv), tag)
+    plain_ms = time_ms(lambda: k2.top2_plain(ta, tb, tv), f"{tag} plain")
     # the library yardstick: one cuBLAS GEMM with the -inf column bias as
     # its epilogue input, then torch.topk
     bias = torch.where(tv, 0.0, -torch.inf)
     library_ms = time_ms(lambda: torch.topk(torch.addmm(bias, ta, tb.T), 2, dim=1),
-                         "k2 library")
-    plan = k2._launch_plan(N, M, a.shape[1], k2._sm_count(dev.index))
-    log("k2", shape=f"N{N},M{M},D128", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        library_ms=f"{library_ms:.4f}", faster_than_library=ms < library_ms,
-        splits=plan["splits"], blocks=plan["blocks"])
+                         f"{tag} library")
+    plan = k2._launch_plan(n, m, d, k2._sm_count(ta.device.index))
     moved = nbytes(ta, tb, tv, top, idx)
-    flops = 2.0 * N * M * a.shape[1]
+    flops = 2.0 * n * m * d
     # bound_ms: the function's own 2*N*M*D at the tensor-core peak the
     # kernel uses; beside it the same work on the CUDA cores, and the
     # 3xTF32 algorithm's three products per multiply-add (not a bound)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(moved, flops, TF32_FLOPS),
+    b = bound(moved, flops, TF32_FLOPS)
+    log(tag, shape=f"N{n},M{m},D{d}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", faster_than_library=ms < library_ms,
+        bound_ms=f"{b['bound_ms']:.4f}", splits=plan["splits"], blocks=plan["blocks"],
+        card=json.dumps(smi_line()))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b,
                 f32_bound_ms=bound(moved, flops)["bound_ms"],
-                tf32x3_ms=bound(moved, 3 * flops, TF32_FLOPS)["bound_ms"])
+                tf32x3_ms=bound(moved, 3 * flops, TF32_FLOPS)["bound_ms"],
+                splits=plan["splits"])
 
 
 def corner_error(h_est: np.ndarray, h_true: np.ndarray, h: int, w: int) -> float:
@@ -857,6 +914,259 @@ def separable_path(dev, h=480, w=640, timed_runs=5) -> dict:
     return launches
 
 
+def rgbd_pair(dev, timed_runs=10) -> dict:
+    """align_rgbd_pair on frames 0 and 2 of the 480x640 planar sequence."""
+    from cusift_tpu_torch import MatchConfig, RansacConfig, SiftConfig
+    from cusift_tpu_torch.data.synthetic import planar_rgbd_sequence
+    from cusift_tpu_torch.models.twoview import align_rgbd_pair
+
+    seq = planar_rgbd_sequence(8, 480, 640, seed=2, motion_scale=0.6)
+    args = [torch.from_numpy(a).to(dev) for a in
+            (seq.images[0], seq.depths[0], seq.images[2], seq.depths[2])]
+    cfgs = (SiftConfig(**SLAM_SIFT), MatchConfig(), RansacConfig(inlier_thresh_3d=0.03))
+    reset_counts()
+    res = align_rgbd_pair(*args, seq.intr, *cfgs)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n_oct = cfgs[0].num_octaves_for(*seq.images.shape[-2:])
+    others = sum(launches[k] for k in ("octave", "ori_hist", "desc_raw", "sep"))
+    if launches["sampler"] < 4 * n_oct or launches["matcher"] < 1 or others:
+        raise AssertionError(f"rgbd pair launches {launches}, expected >= {4 * n_oct} "
+                             f"sampler, >= 1 matcher, no other")
+    r_true = seq.poses_r[2] @ seq.poses_r[0].T
+    t_true = seq.poses_t[2] - r_true @ seq.poses_t[0]
+    r_err = float(np.abs(res.rigid.r.cpu().numpy() - r_true).max())
+    t_err = float(np.linalg.norm(res.rigid.t.cpu().numpy() - t_true))
+    if not (bool(res.rigid.ok) and r_err < RIGID_R_ERR and t_err < RIGID_T_ERR):
+        raise AssertionError(f"rgbd pair: ok={bool(res.rigid.ok)} R err {r_err}, "
+                             f"t err {t_err} m")
+    times = wall_ms(lambda: align_rgbd_pair(*args, seq.intr, *cfgs), timed_runs)
+    log("rgbd", image="x".join(map(str, seq.images.shape[-2:])),
+        kpts_a=int(res.feats_a.count), kpts_b=int(res.feats_b.count),
+        matches=int(res.matches.ok.sum()), inliers=int(res.rigid.num_inliers),
+        r_err=f"{r_err:.6f}", t_err_m=f"{t_err:.6f}",
+        pair_ms_median=f"{statistics.median(times):.3f}", pair_ms_min=f"{min(times):.3f}",
+        pair_ms_max=f"{max(times):.3f}", launches=json.dumps(launches),
+        card=json.dumps(smi_line()))
+    return launches
+
+
+def _spread(xs) -> str:
+    return (f"{statistics.median(xs):.3f} ({min(xs):.3f}-{max(xs):.3f})" if xs
+            else "none")
+
+
+@contextlib.contextmanager
+def first_calls(module, name: str, key):
+    """Within the block, keep clones of the tensor arguments of the first
+    call of `module.name` for each value of key() (None keeps nothing);
+    every call runs as before.  These are the inputs a path gives a kernel
+    wrapper, to hold the kernel against its plain version on them."""
+    calls, fn = {}, getattr(module, name)
+
+    def wrapper(*args):
+        k = key()
+        if k is not None and k not in calls:
+            calls[k] = tuple(t.clone() for t in args)
+        return fn(*args)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def slam_setup(n_frames: int = SLAM_FRAMES, scene: dict = SLAM_SCENE):
+    """Phase 14's orbit (`scene`: planar_rgbd_sequence's keywords) and a
+    builder of its Slam: (seq, frames, build), build(dev, **slam_cfg
+    overrides)."""
+    from cusift_tpu_torch import RansacConfig, SiftConfig, SlamConfig
+    from cusift_tpu_torch.data.synthetic import planar_rgbd_sequence
+    from cusift_tpu_torch.models.slam import Slam
+
+    seq = planar_rgbd_sequence(n_frames, 480, 640, **scene)
+
+    def build(dev, **kw):
+        return Slam(seq.intr, sift_cfg=SiftConfig(**SLAM_SIFT),
+                    ransac_cfg=RansacConfig(inlier_thresh_3d=0.03),
+                    slam_cfg=SlamConfig(**SLAM_CFG, **kw), device=dev)
+
+    return seq, list(zip(seq.images, seq.depths)), build
+
+
+def observe(slam) -> dict:
+    """Time one Slam's frames and fused keyframe events through its
+    on_metric and on_event hooks: the host clock at each committed frame,
+    each event step's device span (CUDA events around its enqueue) and its
+    K1/K2 launches, and each applied event's record."""
+    from cusift_tpu_torch.kernels import matcher, sampler
+
+    st = dict(frame_end=[], events=[], applied=[])
+
+    def on_event(stage, x):
+        if stage == "applied":
+            st["applied"].append(x)
+            return
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        if stage == "dispatch":
+            st["events"].append(dict(marks=[mark], k1=sampler.launches, k2=matcher.launches))
+        else:
+            e = st["events"][-1]
+            e["marks"].append(mark)
+            e["k1"] = sampler.launches - e["k1"]
+            e["k2"] = matcher.launches - e["k2"]
+
+    slam.on_metric = lambda rec: st["frame_end"].append(time.perf_counter())
+    slam.on_event = on_event
+    return st
+
+
+def slam_path(dev) -> tuple[dict, dict]:
+    """Slam.run on the 48-frame orbit (BASELINE configs[3]), then a short
+    pass with an 8-keyframe ring, where eviction fires.  Returns the
+    timed run's launch counts and the K1/K2 inputs the warm-up gave them:
+    frame 0's K1 calls, K2's first tracking and first keyframe-event call."""
+    from cusift_tpu_torch import PoseGraphConfig, SiftConfig
+    from cusift_tpu_torch.kernels import matcher, sampler
+
+    seq, frames, build = slam_setup()
+    n_k1 = 2 * SiftConfig(**SLAM_SIFT).num_octaves_for(*seq.images.shape[-2:])
+
+    # set-up, apart from the timed run: the first window BA, retrieval and
+    # dense graph solve load their CUDA libraries and modules
+    t0 = time.perf_counter()
+    warm = build(dev)
+    in_event = [False]
+    warm.on_event = lambda stage, _: in_event.__setitem__(0, stage == "dispatch")
+    reset_counts()
+    with first_calls(sampler, "sample_grad_patches",
+                     lambda: sampler.launches if sampler.launches < n_k1 else None) as k1_in, \
+            first_calls(matcher, "top2",
+                        lambda: "event" if in_event[0] else "tracking") as k2_in:
+        warm.run(iter(frames[:WARMUP_FRAMES]))
+    torch.cuda.synchronize()
+    log("slam", warmup_frames=WARMUP_FRAMES, warmup_s=f"{time.perf_counter() - t0:.3f}")
+
+    slam = build(dev)
+    st = observe(slam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    recs = slam.run(iter(frames))
+    t_end = time.perf_counter()
+    launches = read_counts()
+    s = slam.state
+    tracked = sum(1 for r in recs if r.get("tracked", True))
+    n_events = len(st["events"])
+    ba = [a for a in st["applied"] if a["window"]]
+    ba_ok = [a for a in ba if a["ba_cost"][1] <= a["ba_cost"][0] and a["ba_cost"][0] > 0]
+    ate = slam.ate(seq.poses_r, seq.poses_t)
+    others = sum(launches[k] for k in ("octave", "ori_hist", "desc_raw", "sep"))
+    if (len(recs) != SLAM_FRAMES or tracked != SLAM_FRAMES or s.n_kf_total < 10
+            or not ba_ok or s.n_closures < 1 or not ate < MAX_ATE):
+        raise AssertionError(f"slam: frames {len(recs)}, tracked {tracked}, keyframes "
+                             f"{s.n_kf_total}, window BAs {len(ba)} ({len(ba_ok)} not "
+                             f"worse), closures {s.n_closures}, ATE {ate}")
+    if launches["sampler"] == 0 or launches["matcher"] == 0 or others:
+        raise AssertionError(f"slam launches {launches}: expected K1 and K2, no other")
+    ev_k1 = sum(e["k1"] for e in st["events"])
+    ev_k2 = sum(e["k2"] for e in st["events"])
+    ev_dev_ms = [e["marks"][0].elapsed_time(e["marks"][1]) for e in st["events"]]
+    apply_ms = [a["apply_ms"] for a in st["applied"]]
+    event_ms = [d + a for d, a in zip(ev_dev_ms, apply_ms)]
+    closing = [a["apply_ms"] for a in st["applied"] if a["accept"]]
+    marks = st["frame_end"]
+    frame_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    fps = (SLAM_FRAMES - 1) / (t_end - marks[0])
+    n_steps = SLAM_FRAMES - 1            # every frame after the first tracks
+    log("slam", image="x".join(map(str, seq.images.shape[-2:])), frames=SLAM_FRAMES,
+        tracked=tracked, keyframes=s.n_kf_total, closures=s.n_closures, window_bas=len(ba),
+        window_bas_not_worse=len(ba_ok), ate_m=f"{ate:.6f}",
+        kpts_median=statistics.median(r["kpts"] for r in recs),
+        kpts_min=min(r["kpts"] for r in recs), kpts_budget=SiftConfig(**SLAM_SIFT).total_kpts,
+        inliers_median=statistics.median(r["inliers"] for r in recs[1:]),
+        fps_after_first=f"{fps:.3f}", frame_ms=_spread(frame_ms),
+        events=n_events, event_ms=_spread(event_ms), event_device_ms=_spread(ev_dev_ms),
+        event_apply_ms=_spread(apply_ms), closing_apply_ms=_spread(closing),
+        k1_per_frame=f"{(launches['sampler'] - ev_k1) / SLAM_FRAMES:.2f}",
+        k2_per_tracking_step=f"{(launches['matcher'] - ev_k2) / n_steps:.2f}",
+        k1_per_event=f"{ev_k1 / max(n_events, 1):.2f}",
+        k2_per_event=f"{ev_k2 / max(n_events, 1):.2f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f}",
+        launches=json.dumps(launches), card=json.dumps(smi_line()))
+
+    # the final map's graph solve with each solver, as the split path
+    # (pg_cfg, "cg" by default) and the fused event ("dense") run it
+    solves = {solver: wall_ms(lambda c=PoseGraphConfig(solver=solver): slam._optimize_graph(c),
+                              3, warmup=1) for solver in ("dense", "cg")}
+    log("slam", graph_nodes=s.n_kf, graph_edges=len(s.edge_i),
+        pg_dense_ms=_spread(solves["dense"]), pg_cg_ms=_spread(solves["cg"]))
+
+    small = build(dev, max_keyframes=8)
+    recs = small.run(iter(frames[:20]))
+    tracked = sum(1 for r in recs if r.get("tracked", True))
+    evicted = small.state.n_kf_total - small.state.n_kf
+    ate = small.ate(seq.poses_r[:20], seq.poses_t[:20])
+    if tracked != 20 or small.state.n_kf != 8 or evicted < 1 or not np.isfinite(ate):
+        raise AssertionError(f"slam eviction pass: tracked {tracked}/20, ring "
+                             f"{small.state.n_kf}, evicted {evicted}, ATE {ate}")
+    log("slam", eviction_pass_frames=20, tracked=tracked, ring=small.state.n_kf,
+        keyframes=small.state.n_kf_total, evicted=evicted,
+        frozen_frames=sum(1 for r in small.state.traj_ref if r < 0), ate_m=f"{ate:.6f}")
+    if len(k1_in) != n_k1 or set(k2_in) != {"tracking", "event"}:
+        raise AssertionError(f"slam warm-up kept {len(k1_in)} K1 inputs of {n_k1}, "
+                             f"K2 inputs {sorted(k2_in)}")
+    return launches, dict(k1=[k1_in[i] for i in range(n_k1)], k2=k2_in)
+
+
+def check_sampler_slam(dev, calls) -> dict:
+    """K1 at the inputs one frame's extraction on the SLAM path gave it
+    (480x640 levels, no upscale, 1024 slots an octave; orientation and
+    descriptor geometry in each octave): each call against its plain
+    version and the grid_sample yardstick, timed, and summed per frame."""
+    from cusift_tpu_torch.kernels import sampler as k1
+
+    cases = []
+    for i, (gauss, lvl, ys, xs) in enumerate(calls):
+        tag = f"k1 slam {i}"
+        case = _k1_case(tag, k1, gauss, lvl, ys, xs)
+        ms = time_ms(lambda: k1.sample_grad_patches(gauss, lvl, ys, xs), tag)
+        plain_ms = time_ms(lambda: k1.sample_grad_patches_plain(gauss, lvl, ys, xs),
+                           f"{tag} plain")
+        lib = library_yardstick(tag, gauss, lvl, ys, xs, *case["plain"])
+        (l, h, w), (n, smp) = gauss.shape, ys.shape
+        b = case["bound"]
+        cases.append(dict(shape=[l, h, w, n, smp], max_abs_err=case["max_abs_err"], ms=ms,
+                          plain_ms=plain_ms, library_ms=lib["library_ms"], **b))
+        log("k1", path="slam", call=i, shape=f"L{l}x{h}x{w},N{n},S{smp}",
+            inb_frac=f"{case['plain'][2].float().mean():.4f}", max_abs_err=case["max_abs_err"],
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib['library_ms']:.4f}",
+            bound_ms=f"{b['bound_ms']:.4f}", pct_of_bound=f"{100 * b['bound_ms'] / ms:.1f}")
+    frame = {key: sum(c[key] for c in cases)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log("k1", path="slam", calls_per_frame=len(cases), frame_ms_sum=f"{frame['ms']:.4f}",
+        frame_plain_ms_sum=f"{frame['plain_ms']:.4f}",
+        frame_library_ms_sum=f"{frame['library_ms']:.4f}",
+        frame_bound_ms_sum=f"{frame['bound_ms']:.4f}", card=json.dumps(smi_line()))
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases), calls=cases,
+                **{f"frame_{k}_sum": v for k, v in frame.items()})
+
+
+def check_matcher_slam(dev, calls) -> dict:
+    """K2 at the inputs the SLAM path gave it (2048 x 2048, the frames'
+    own valid masks): its first tracking call and its first call in a
+    keyframe event, each against its plain version and timed."""
+    out = {}
+    for kind in ("tracking", "event"):
+        ta, tb, tv = calls[kind]
+        err = _k2_case(f"slam {kind}", ta, tb, tv)
+        out[kind] = dict(max_abs_err=err, valid_b=int(tv.sum()),
+                         **_k2_timed(f"k2 slam {kind}", ta, tb, tv))
+    return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -890,16 +1200,26 @@ def main() -> int:
     k6 = check_sep(dev, gen)
     batch = batched_fused_path(dev, imgs, h_true)
     sep = separable_path(dev)
+    rgbd = rgbd_pair(dev)
+    slam, slam_inputs = slam_path(dev)
+    k1_slam = check_sampler_slam(dev, slam_inputs["k1"])
+    k2_slam = check_matcher_slam(dev, slam_inputs["k2"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_slam["max_abs_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_slam["max_abs_err"])
 
     src = "cusift_tpu_torch/csrc/"
     tpu = "cusift_tpu/ops/pallas/"
     kernels = [
         dict(name="sample_grad_patches", route="cuda", source=src + "sampler.cu",
              replaces=tpu + "sampler.py:588", path="two-view (phase 5)",
-             launches=launches["sampler"], **k1),
+             launches=launches["sampler"], rgbd_pair_launches=rgbd["sampler"],
+             slam_launches=slam["sampler"], slam_path="RGB-D SLAM (phase 14)",
+             slam_frame=k1_slam, **k1),
         dict(name="match_top2", route="cuda", source=src + "matcher.cu",
              replaces=tpu + "matcher.py:43", path="two-view (phase 5)",
-             launches=launches["matcher"], **k2),
+             launches=launches["matcher"], rgbd_pair_launches=rgbd["matcher"],
+             slam_launches=slam["matcher"], slam_path="RGB-D SLAM (phase 14)",
+             slam_shape=k2_slam, **k2),
         dict(name="fused_octave", route="cuda", source=src + "octave.cu",
              replaces=tpu + "octave.py:186", path="batched fused (phase 11)",
              launches=batch["octave"], **k3),

@@ -10,6 +10,8 @@ The port imports nothing of `cusift_tpu`: it keeps its own copy of the
 configs (`config.py`), built from the same keyword arguments.
 """
 
-from .config import MatchConfig, RansacConfig, SiftConfig
+from .config import (BAConfig, MatchConfig, PoseGraphConfig, RansacConfig,
+                     SiftConfig, SlamConfig)
 
-__all__ = ["SiftConfig", "MatchConfig", "RansacConfig"]
+__all__ = ["SiftConfig", "MatchConfig", "RansacConfig", "BAConfig",
+           "PoseGraphConfig", "SlamConfig"]

@@ -1,8 +1,9 @@
 """Frozen configuration of the port (twin of `cusift_tpu/config.py`).
 
-The port keeps its own copy of the three configs its path reads:
-`SiftConfig`, `MatchConfig` and `RansacConfig`, with every field and
-default of the reference, so the two packages are built from the same
+The port keeps its own copy of the configs its paths read: `SiftConfig`,
+`MatchConfig` and `RansacConfig` (the two-view path), and `BAConfig`,
+`PoseGraphConfig` and `SlamConfig` (the RGB-D SLAM path), with every field
+and default of the reference, so the two packages are built from the same
 keyword arguments and agree on every derived size.  Fields that steer
 only the TPU build (`sampler_group`, `fused_tile_rows`, `conv_backend`,
 `approx_topk`) are kept for that reason and have no effect here.
@@ -11,6 +12,7 @@ only the TPU build (`sampler_group`, `fused_tile_rows`, `conv_backend`,
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -144,3 +146,80 @@ class RansacConfig:
     refine_iters: int = 5               # IRLS rounds on the winner's inliers
     min_matches: int = 8
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class BAConfig:
+    """Bundle adjustment: LM with matrix-free Schur complement + PCG."""
+
+    max_iters: int = 20                 # outer LM iterations
+    cg_iters: int = 50                  # PCG iterations on the camera system
+    cg_tol: float = 1e-6
+    init_damping: float = 1e-3
+    damping_up: float = 4.0
+    damping_down: float = 0.5
+    huber_delta: float = 0.0            # 0 => plain L2 on reprojection residuals
+    fix_first_pose: bool = True
+    # reprojection BA has a 7-dof gauge (6 pose + 1 scale); fixing >= 2
+    # poses pins it.  Counts from pose 0; overrides fix_first_pose when > 0.
+    num_fixed_poses: int = 1
+    # camera-system solver: "cg" (matrix-free Schur + PCG, the default) or
+    # "dense" (assembled [6C, 6C] Schur complement, U-whitened
+    # eigen-truncated solve; experimental in the reference, which measured
+    # worse end-to-end ATE with it)
+    solver: str = "cg"
+
+
+@dataclass(frozen=True)
+class PoseGraphConfig:
+    max_iters: int = 20
+    cg_iters: int = 100
+    cg_tol: float = 1e-8
+    init_damping: float = 1e-6
+    fix_first_pose: bool = True
+    # robust scale on the per-edge UNWEIGHTED residual norm (IRLS inside
+    # the LM loop; 0 = plain L2), with the kernel below (optim/robust.py)
+    huber_delta: float = 0.0
+    robust_kernel: str = "huber"        # "huber" | "cauchy" | "tukey"
+    # normal-equation solver: "cg" (matrix-free Gauss-Newton) or "dense"
+    # (per-edge Jacobian assembly + Cholesky); the SLAM loop's keyframe
+    # event passes "dense"
+    solver: str = "cg"
+
+
+@dataclass(frozen=True)
+class SlamConfig:
+    """Keyframe RGB-D SLAM frontend/backend (BASELINE configs[3])."""
+
+    max_keyframes: int = 256
+    kf_min_inliers: int = 60            # fewer inliers than this => new keyframe
+    kf_max_translation: float = 0.25    # metres
+    kf_max_rotation: float = 0.25       # radians
+    track_min_inliers: int = 12         # below this tracking is declared lost
+    loop_min_score: float = 0.10        # retrieval similarity gate
+    loop_temporal_gap: int = 20         # keyframes; ignore recent neighbours
+    loop_min_inliers: int = 40          # geometric verification gate
+    checkpoint_every: int = 0           # keyframes between checkpoints (0 = off)
+    # sliding-window local BA over the last `local_ba_window` keyframes on
+    # every insert once the window is full (0 disables); the two oldest
+    # window poses are the gauge anchors
+    local_ba_window: int = 5
+    local_ba_iters: int = 5             # LM iterations per insert
+    local_ba_cg_iters: int = 15         # PCG iterations on the camera system
+    # landmark anchoring (models/local_ba.py): "newest" or "union"
+    local_ba_anchor: str = "newest"
+    # eviction once the ring is full: "redundant" | "oldest" | "none"
+    # (models/evict.py)
+    kf_evict: str = "redundant"
+    # window BA + loop-closure retrieval/verification as one step with one
+    # packed upload and one packed fetch (models/slam.py:_kf_event_step);
+    # "union" anchoring takes the split form
+    fused_events: bool = True
+    # apply the fused event's packed result at the next reader of the
+    # pose/edge state instead of at once; results are identical
+    defer_events: bool = True
+
+
+def replace(cfg, **kw):
+    """Functional config update (frozen dataclasses)."""
+    return dataclasses.replace(cfg, **kw)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.precision import f32_matmuls
+
 
 def det3(m: torch.Tensor) -> torch.Tensor:
     """Determinant of [..., 3, 3]."""
@@ -36,6 +38,7 @@ def adjugate3(m: torch.Tensor) -> torch.Tensor:
     ], -2)
 
 
+@f32_matmuls
 def inv3(m: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Inverse of [..., 3, 3]; singular inputs return adj/eps-guarded det."""
     d = det3(m)[..., None, None]
@@ -45,6 +48,7 @@ def inv3(m: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return adjugate3(m) / d
 
 
+@f32_matmuls
 def solve3(m: torch.Tensor, b: torch.Tensor, eps: float = 1e-12):
     """Solve m x = b for [..., 3, 3] x [..., 3]; returns (x, ok)."""
     d = det3(m)
@@ -86,3 +90,38 @@ def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             s = s - l[k][i] * x[k]
         x[i] = s / l[i][i]
     return torch.stack(x, -1)
+
+
+@f32_matmuls
+def inv3_spd(a: torch.Tensor, rel_floor: float = 3e-7) -> torch.Tensor:
+    """Inverse of PSD [..., 3, 3] via closed-form Cholesky (stable in f32).
+
+    The cofactor inverse (inv3) is catastrophically wrong in f32 past
+    condition ~1e7.  Cholesky is backward stable; pivot squares are
+    clamped to rel_floor times the largest diagonal entry, so f32
+    cancellation acts as bounded extra damping of a thin direction instead
+    of a blow-up: ||inv|| <= 1/(rel_floor * max_diag).
+    """
+    d11, d22, d33 = a[..., 0, 0], a[..., 1, 1], a[..., 2, 2]
+    floor = rel_floor * torch.maximum(d11, torch.maximum(d22, d33)) + 1e-30
+    l11 = torch.sqrt(torch.maximum(d11, floor))
+    l21 = a[..., 1, 0] / l11
+    l31 = a[..., 2, 0] / l11
+    l22 = torch.sqrt(torch.maximum(d22 - l21 * l21, floor))
+    l32 = (a[..., 2, 1] - l31 * l21) / l22
+    l33 = torch.sqrt(torch.maximum(d33 - l31 * l31 - l32 * l32, floor))
+    m11 = 1.0 / l11
+    m22 = 1.0 / l22
+    m33 = 1.0 / l33
+    m21 = -l21 * m11 * m22
+    m31 = (l21 * l32 - l22 * l31) * m11 * m22 * m33
+    m32 = -l32 * m22 * m33
+    i11 = m11 * m11 + m21 * m21 + m31 * m31
+    i12 = m21 * m22 + m31 * m32
+    i13 = m31 * m33
+    i22 = m22 * m22 + m32 * m32
+    i23 = m32 * m33
+    i33 = m33 * m33
+    return torch.stack([torch.stack([i11, i12, i13], -1),
+                        torch.stack([i12, i22, i23], -1),
+                        torch.stack([i13, i23, i33], -1)], -2)

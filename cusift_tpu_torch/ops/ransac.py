@@ -1,4 +1,4 @@
-"""Batched-hypothesis RANSAC homography (twin of the homography part of
+"""Batched-hypothesis RANSAC: homography and 3-D rigid transform (twin of
 `cusift_tpu/ops/ransac.py`).
 
 A static batch of minimal samples is solved at once (a leading batch
@@ -16,8 +16,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import RansacConfig
-from ..utils.precision import pin_f32
-from .geometry import apply_homography, solve_homography
+from ..utils.precision import f32_matmuls, pin_f32
+from .geometry import apply_homography, procrustes, solve_homography
 
 
 class HomographyResult(NamedTuple):
@@ -25,6 +25,14 @@ class HomographyResult(NamedTuple):
     inliers: torch.Tensor      # [N] bool
     num_inliers: torch.Tensor  # int
     ok: torch.Tensor           # bool: enough matches / valid fit
+
+
+class RigidResult(NamedTuple):
+    r: torch.Tensor            # [3, 3]
+    t: torch.Tensor            # [3]
+    inliers: torch.Tensor      # [N] bool
+    num_inliers: torch.Tensor  # int
+    ok: torch.Tensor           # bool
 
 
 def _sample_indices(gen: torch.Generator, valid: torch.Tensor, nhyp: int,
@@ -86,3 +94,42 @@ def improve_homography(h: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
     prediction, for example); `find_homography` runs the same loop."""
     pin_f32()
     return _irls(h, pa, pb, valid, thresh, iters)
+
+
+def _rigid_sq_err(r, t, pa, pb):
+    """[..., N] squared 3-D residuals of pb ~ R pa + t for [..., 3, 3] R."""
+    return ((pa @ r.transpose(-1, -2) + t[..., None, :] - pb) ** 2).sum(-1)
+
+
+@f32_matmuls
+def find_rigid(pa: torch.Tensor, pb: torch.Tensor, valid: torch.Tensor,
+               cfg: RansacConfig = RansacConfig(),
+               generator: torch.Generator | None = None) -> RigidResult:
+    """RANSAC rigid transform (R, t) with R @ pa + t ~ pb on [N, 3] points.
+
+    The RGB-D alignment of cuSIFT: 3-point Procrustes hypotheses, the
+    `inlier_thresh_3d` gate, and `refine_iters` weighted Procrustes rounds
+    on the winner's inliers.
+    """
+    if generator is None:
+        generator = torch.Generator(device=pa.device).manual_seed(cfg.seed)
+    idx = _sample_indices(generator, valid, cfg.num_hypotheses, 3)
+    # the 3 sampled points with unit weights == one-hot weights over all N
+    ones = torch.ones(idx.shape, dtype=pa.dtype, device=pa.device)
+    rs, ts = procrustes(pa[idx], pb[idx], ones)              # [HYP, 3, 3], [HYP, 3]
+    thr = cfg.inlier_thresh_3d ** 2
+    finite = torch.isfinite(rs.reshape(rs.shape[0], -1)).all(-1)
+    counts = ((_rigid_sq_err(rs, ts, pa, pb) < thr) & valid).sum(-1)
+    counts = torch.where(finite, counts, torch.full_like(counts, -1))
+    best = torch.argmax(counts)
+    r, t = rs[best], ts[best]
+    for _ in range(cfg.refine_iters):
+        w = ((_rigid_sq_err(r, t, pa, pb) < thr) & valid).to(pa.dtype)
+        r2, t2 = procrustes(pa, pb, w)
+        good = (torch.isfinite(r2).all() & torch.isfinite(t2).all()
+                & (w.sum() >= 3))
+        r, t = torch.where(good, r2, r), torch.where(good, t2, t)
+    inliers = (_rigid_sq_err(r, t, pa, pb) < thr) & valid
+    num = inliers.sum()
+    ok = (valid.sum() >= cfg.min_matches) & (num >= 3)
+    return RigidResult(r=r, t=t, inliers=inliers, num_inliers=num, ok=ok)

@@ -1,9 +1,9 @@
 """The port's own configs (cusift_tpu_torch/config.py) against the JAX
 package's.
 
-The port keeps its own copy of `SiftConfig`, `MatchConfig` and
-`RansacConfig`, so both packages are built from the same keyword
-arguments.  The copies must keep every field name and default of the
+The port keeps its own copy of `SiftConfig`, `MatchConfig`,
+`RansacConfig`, `BAConfig`, `PoseGraphConfig` and `SlamConfig` (and
+`replace`), so both packages are built from the same keyword arguments.  The copies must keep every field name and default of the
 reference, and every copied method must give the same value, at the
 default configuration and at the bench's.
 """
@@ -25,13 +25,22 @@ CONFIGS = {"default": {}, "bench": BENCH,
            "decay": dict(max_kpts_per_octave=40, scales_per_octave=4)}
 
 
-@pytest.mark.parametrize("name", ["SiftConfig", "MatchConfig", "RansacConfig"])
+@pytest.mark.parametrize("name", ["SiftConfig", "MatchConfig", "RansacConfig",
+                                  "BAConfig", "PoseGraphConfig", "SlamConfig"])
 def test_fields_and_defaults_equal(name):
     ours = {f.name: f.default for f in dataclasses.fields(getattr(tcfg, name))}
     ref = {f.name: f.default for f in dataclasses.fields(getattr(jcfg, name))}
     assert ours == ref
+    assert [f.name for f in dataclasses.fields(getattr(tcfg, name))] == list(ref)
     assert getattr(cusift_tpu_torch, name) is getattr(tcfg, name)
     assert getattr(tcfg, name).__dataclass_params__.frozen
+
+
+def test_replace_matches_reference():
+    ours = tcfg.replace(tcfg.SlamConfig(), max_keyframes=8, kf_evict="oldest")
+    ref = jcfg.replace(jcfg.SlamConfig(), max_keyframes=8, kf_evict="oldest")
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert hash(ours) == hash(tcfg.SlamConfig(max_keyframes=8, kf_evict="oldest"))
 
 
 @pytest.mark.parametrize("which", sorted(CONFIGS))

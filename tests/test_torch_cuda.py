@@ -14,7 +14,10 @@ differ only where the plain top-2 is a near tie; K3 atol 1e-5 on levels
 and DoG (float32 sums of another order), score masks equal on >= 99.99% of
 pixels; K4 and K5 1e-4 of the largest histogram value (sums over the
 samples in another order, atan2f against torch's atan2), and their reruns
-bit-identical.
+bit-identical.  The RGB-D paths on the card: `align_rgbd_pair` within
+0.01 (R) and 0.01 m (t) of ground truth, and a short `Slam` run whose
+fused and split events agree within 1e-3 and whose deferred and eager
+events agree bit for bit.
 """
 
 import numpy as np
@@ -556,3 +559,70 @@ def test_octave_kernel_plans(dev, case):
         one = k3.fused_octave(base[i].contiguous(), cfg)
         for a, b in zip(one, got):
             assert torch.equal(a, b[i])
+
+
+def test_align_rgbd_pair_on_the_card(dev):
+    """align_rgbd_pair at chip_smoke.py phase 13's shape (frames 0 and 2 of
+    the 480x640 planar sequence, 2048 keypoints) through K1 and K2: R
+    within 0.01 and t within 0.01 m of ground truth."""
+    from cusift_tpu_torch import MatchConfig, RansacConfig
+    from cusift_tpu_torch.data.synthetic import planar_rgbd_sequence
+    from cusift_tpu_torch.models.twoview import align_rgbd_pair
+
+    seq = planar_rgbd_sequence(8, 480, 640, seed=2, motion_scale=0.6)
+    before = (k1.launches, k2.launches)
+    res = align_rgbd_pair(seq.images[0], seq.depths[0], seq.images[2], seq.depths[2],
+                          seq.intr, SiftConfig(max_kpts=2048, max_kpts_per_octave=1024),
+                          MatchConfig(), RansacConfig(inlier_thresh_3d=0.03), device=dev)
+    assert k1.launches > before[0] and k2.launches > before[1]
+    assert res.rigid.r.device.type == "cuda" and bool(res.rigid.ok)
+    r_true = seq.poses_r[2] @ seq.poses_r[0].T
+    t_true = seq.poses_t[2] - r_true @ seq.poses_t[0]
+    assert np.abs(res.rigid.r.cpu().numpy() - r_true).max() < 0.01
+    assert np.linalg.norm(res.rigid.t.cpu().numpy() - t_true) < 0.01
+
+
+def _card_slam_run(dev, **kw):
+    """A 12-frame Slam run on the card at the CPU tests' small shapes."""
+    from cusift_tpu_torch import PoseGraphConfig, RansacConfig, SlamConfig
+    from cusift_tpu_torch.data.synthetic import planar_rgbd_sequence
+    from cusift_tpu_torch.models.slam import Slam
+
+    seq = planar_rgbd_sequence(12, 240, 320, motion_scale=0.9, seed=5)
+    cfg = dict(max_keyframes=32, kf_min_inliers=220, kf_max_translation=0.06,
+               kf_max_rotation=0.06, loop_temporal_gap=4, loop_min_score=0.05,
+               loop_min_inliers=25)
+    slam = Slam(seq.intr, sift_cfg=SiftConfig(max_kpts=384, max_kpts_per_octave=192,
+                                              num_octaves=3),
+                ransac_cfg=RansacConfig(inlier_thresh_3d=0.03),
+                slam_cfg=SlamConfig(**cfg, **kw),
+                pg_cfg=PoseGraphConfig(solver="dense"), device=dev)
+    slam.run(zip(seq.images, seq.depths))
+    assert slam.state.kf_desc.device.type == "cuda"
+    return seq, slam
+
+
+def test_slam_fused_and_split_agree_on_the_card(dev):
+    """Fused and split events on the card: the same keyframes, closures
+    and edges, trajectories within 1e-3."""
+    seq, sf = _card_slam_run(dev, fused_events=True)
+    _, ss = _card_slam_run(dev, fused_events=False)
+    assert sf.state.n_kf == ss.state.n_kf >= 8
+    assert sf.state.n_closures == ss.state.n_closures
+    assert sf.state.edge_i == ss.state.edge_i
+    for a, b in zip(sf.trajectory(), ss.trajectory()):
+        np.testing.assert_allclose(a, b, atol=1e-3)
+    assert sf.ate(seq.poses_r, seq.poses_t) < 0.05
+
+
+def test_slam_deferred_events_match_eager_on_the_card(dev):
+    """Deferred and eager events on the card give bit-identical
+    trajectories and metric records: every sum on the path is
+    deterministic (no atomics), and the fetch time changes nothing."""
+    _, sd = _card_slam_run(dev, defer_events=True)
+    _, se = _card_slam_run(dev, defer_events=False)
+    assert sd.state.n_closures == se.state.n_closures >= 1
+    assert sd.state.edge_i == se.state.edge_i
+    assert [r["loop"] for r in sd.metrics] == [r["loop"] for r in se.metrics]
+    for a, b in zip(sd.trajectory(), se.trajectory()):
+        np.testing.assert_array_equal(a, b)

@@ -2,8 +2,9 @@
 
 * The port imports neither jax, cv2 nor any module of the JAX package
   `cusift_tpu` (checked in a fresh interpreter that runs a tiny CPU
-  match_pair, and in one that imports `chip_smoke` and every module of the
-  port): the machine with the GPU has neither jax nor cv2.
+  match_pair, RGB-D pair alignment and SLAM run, and in one that imports
+  `chip_smoke` and every module of the port): the machine with the GPU has
+  neither jax nor cv2.
 * On CPU tensors the kernel wrappers take their plain versions and launch
   nothing; on a device with no kernel they raise.  The opt-in samplers
   ("fused", "separable") take the plain versions of K4-K6, which compute
@@ -57,6 +58,18 @@ res = match_pair(torch.from_numpy(a), torch.from_numpy(b),
                  SiftConfig(max_kpts=64, max_kpts_per_octave=32),
                  MatchConfig(), RansacConfig(num_hypotheses=32))
 assert res.feats_a.desc.shape == (64, 128)
+from cusift_tpu_torch import SlamConfig
+from cusift_tpu_torch.data.synthetic import planar_rgbd_sequence
+from cusift_tpu_torch.models.slam import Slam
+from cusift_tpu_torch.models.twoview import align_rgbd_pair
+seq = planar_rgbd_sequence(3, 96, 128, seed=2, motion_scale=0.3)
+cfg = SiftConfig(max_kpts=64, max_kpts_per_octave=32, num_octaves=2)
+align_rgbd_pair(seq.images[0], seq.depths[0], seq.images[1], seq.depths[1], seq.intr,
+                cfg, ransac_cfg=RansacConfig(num_hypotheses=32), device="cpu")
+slam = Slam(seq.intr, cfg, slam_cfg=SlamConfig(max_keyframes=4, kf_max_translation=0.01),
+            device="cpu")
+slam.run(zip(seq.images, seq.depths))
+assert len(slam.trajectory()[0]) == 3
 """ + _CHECK
 
 # chip_smoke.py imports the port inside its phases: import it, every
@@ -70,6 +83,12 @@ for mod in pkgutil.walk_packages(cusift_tpu_torch.__path__, "cusift_tpu_torch.")
     importlib.import_module(mod.name)
 imgs, h_true = chip_smoke.bench_frames(torch.device("cpu"), h=48, w=64, pairs=1)
 assert imgs.shape == (2, 48, 64) and len(h_true) == 1
+names = {m.name for m in pkgutil.walk_packages(cusift_tpu_torch.__path__, "cusift_tpu_torch.")}
+for mod in ("config", "optim.lie", "optim.robust", "optim.ba", "optim.posegraph",
+            "ops.geometry", "ops.mat3", "ops.ransac", "models.twoview", "data.synthetic",
+            "data.evaluation", "models.local_ba", "models.evict", "utils.pipeline",
+            "models.slam"):
+    assert "cusift_tpu_torch." + mod in names, mod
 """ + _CHECK
 
 
