@@ -62,7 +62,25 @@ Phases (one line each; any failure raises and exits non-zero):
      10 K1 calls of one frame's extraction (480x640 levels, no upscale,
      1024 slots an octave) and K2's first tracking and first keyframe-event
      call (2048 x 2048 with the frames' valid masks), each against its
-     plain version and timed beside its library yardstick.
+     plain version and timed beside its library yardstick;
+ 16. chunked RGB-D tracking on phase 14's orbit: one `_chunk_step` of 8
+     frames against the bootstrap keyframe, its [8, 22] rows bit for bit
+     against 8 sequential `_frame_step` calls with the same generator
+     seeds; then `Slam.run(chunk=8)` over the 48 frames (every frame
+     tracked, ATE, >= 10 keyframes and fewer than twice phase 14's, one
+     fetch of the packed rows a chunk), frames/s beside phase 14's;
+ 17. a stereo pair at full width: frame 0 of the north-star stereo scene
+     (`two_plane_stereo_sequence(150, 480, 640, seed=3, motion_scale=0.9,
+     path="loop", amplitude=6.0, blobs=800, detail_octaves=4)`) through
+     `_extract_stereo_points` with 2048 keypoints, no upscale: >= 60
+     admissible matches, median relative depth error < 0.02 against the
+     analytic depth, K1 20 and K2 1 launches, 10 timed runs;
+ 18. stereo SLAM: `StereoSlam.run` over that scene at chunk 1 and chunk 8
+     (`SlamConfig(max_keyframes=48, loop_temporal_gap=12)`), each after an
+     untimed warm-up: >= 145 frames tracked, metric ATE (no alignment)
+     < 0.04 of the path, KITTI drift < 15%; frames/s with window BA,
+     keypoints a frame, keyframes, closures, evictions, ms per event, K1
+     and K2 launches a frame and peak device memory.
 The line before the last is a JSON object with each kernel's launches on
 its path, its error against the plain version, its times and its bound;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device it
@@ -112,6 +130,20 @@ SLAM_CFG = dict(kf_min_inliers=60, kf_max_translation=0.06, kf_max_rotation=0.06
 RIGID_R_ERR = 0.01     # tests/test_slam.py::test_rgbd_pair_alignment's bounds
 RIGID_T_ERR = 0.01     # m
 MAX_ATE = 0.05         # m, tests/test_slam.py's loop-closure bound
+CHUNK = 8              # the chunked runs' frames a step (tpu_stereo_longrun.py)
+# the north-star stereo run (scripts/tpu_stereo_longrun.py:35-36,89-91) at
+# the stereo soak's 150 frames (tests/test_stereo.py:105-107), not 300
+STEREO_SIFT = dict(max_kpts=2048, max_kpts_per_octave=1024, upscale=False)
+STEREO_SCENE = dict(seed=3, motion_scale=0.9, path="loop", amplitude=6.0, blobs=800,
+                    detail_octaves=4)
+STEREO_FRAMES = 150
+STEREO_CHUNK_FRAMES = STEREO_FRAMES   # the chunk-8 run's frames
+STEREO_SLAM_CFG = dict(max_keyframes=48, loop_temporal_gap=12)
+STEREO_MIN_TRACKED = 145     # tests/test_stereo.py:115-122's soak bounds
+STEREO_ATE_OF_PATH = 0.04    # metric ATE, no alignment
+STEREO_MAX_DRIFT = 15.0      # KITTI translation %, lengths 0.25 and 0.5 x path
+STEREO_MIN_MATCHES = 60      # tests/test_stereo.py:31-65's pair bounds
+STEREO_DEPTH_REL = 0.02
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores (same)
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores (same)
@@ -1023,11 +1055,22 @@ def observe(slam) -> dict:
     return st
 
 
-def slam_path(dev) -> tuple[dict, dict]:
+def event_stats(st) -> dict:
+    """ms per keyframe event (device span + apply) and the events' K1/K2
+    launches, from `observe`'s record."""
+    dev_ms = [e["marks"][0].elapsed_time(e["marks"][1]) for e in st["events"]]
+    apply_ms = [a["apply_ms"] for a in st["applied"]]
+    return dict(n=len(st["events"]), ms=[d + a for d, a in zip(dev_ms, apply_ms)],
+                device_ms=dev_ms, apply_ms=apply_ms,
+                k1=sum(e["k1"] for e in st["events"]), k2=sum(e["k2"] for e in st["events"]))
+
+
+def slam_path(dev) -> tuple[dict, dict, dict]:
     """Slam.run on the 48-frame orbit (BASELINE configs[3]), then a short
     pass with an 8-keyframe ring, where eviction fires.  Returns the
-    timed run's launch counts and the K1/K2 inputs the warm-up gave them:
-    frame 0's K1 calls, K2's first tracking and first keyframe-event call."""
+    timed run's launch counts, the K1/K2 inputs the warm-up gave them
+    (frame 0's K1 calls, K2's first tracking and first keyframe-event
+    call) and the timed run's frames/s and keyframes."""
     from cusift_tpu_torch import PoseGraphConfig, SiftConfig
     from cusift_tpu_torch.kernels import matcher, sampler
 
@@ -1059,7 +1102,6 @@ def slam_path(dev) -> tuple[dict, dict]:
     launches = read_counts()
     s = slam.state
     tracked = sum(1 for r in recs if r.get("tracked", True))
-    n_events = len(st["events"])
     ba = [a for a in st["applied"] if a["window"]]
     ba_ok = [a for a in ba if a["ba_cost"][1] <= a["ba_cost"][0] and a["ba_cost"][0] > 0]
     ate = slam.ate(seq.poses_r, seq.poses_t)
@@ -1071,16 +1113,14 @@ def slam_path(dev) -> tuple[dict, dict]:
                              f"worse), closures {s.n_closures}, ATE {ate}")
     if launches["sampler"] == 0 or launches["matcher"] == 0 or others:
         raise AssertionError(f"slam launches {launches}: expected K1 and K2, no other")
-    ev_k1 = sum(e["k1"] for e in st["events"])
-    ev_k2 = sum(e["k2"] for e in st["events"])
-    ev_dev_ms = [e["marks"][0].elapsed_time(e["marks"][1]) for e in st["events"]]
-    apply_ms = [a["apply_ms"] for a in st["applied"]]
-    event_ms = [d + a for d, a in zip(ev_dev_ms, apply_ms)]
+    ev = event_stats(st)
+    ev_k1, ev_k2, n_events = ev["k1"], ev["k2"], ev["n"]
     closing = [a["apply_ms"] for a in st["applied"] if a["accept"]]
     marks = st["frame_end"]
     frame_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     fps = (SLAM_FRAMES - 1) / (t_end - marks[0])
     n_steps = SLAM_FRAMES - 1            # every frame after the first tracks
+    stats = dict(fps=fps, keyframes=s.n_kf_total)
     log("slam", image="x".join(map(str, seq.images.shape[-2:])), frames=SLAM_FRAMES,
         tracked=tracked, keyframes=s.n_kf_total, closures=s.n_closures, window_bas=len(ba),
         window_bas_not_worse=len(ba_ok), ate_m=f"{ate:.6f}",
@@ -1088,8 +1128,8 @@ def slam_path(dev) -> tuple[dict, dict]:
         kpts_min=min(r["kpts"] for r in recs), kpts_budget=SiftConfig(**SLAM_SIFT).total_kpts,
         inliers_median=statistics.median(r["inliers"] for r in recs[1:]),
         fps_after_first=f"{fps:.3f}", frame_ms=_spread(frame_ms),
-        events=n_events, event_ms=_spread(event_ms), event_device_ms=_spread(ev_dev_ms),
-        event_apply_ms=_spread(apply_ms), closing_apply_ms=_spread(closing),
+        events=n_events, event_ms=_spread(ev["ms"]), event_device_ms=_spread(ev["device_ms"]),
+        event_apply_ms=_spread(ev["apply_ms"]), closing_apply_ms=_spread(closing),
         k1_per_frame=f"{(launches['sampler'] - ev_k1) / SLAM_FRAMES:.2f}",
         k2_per_tracking_step=f"{(launches['matcher'] - ev_k2) / n_steps:.2f}",
         k1_per_event=f"{ev_k1 / max(n_events, 1):.2f}",
@@ -1118,7 +1158,215 @@ def slam_path(dev) -> tuple[dict, dict]:
     if len(k1_in) != n_k1 or set(k2_in) != {"tracking", "event"}:
         raise AssertionError(f"slam warm-up kept {len(k1_in)} K1 inputs of {n_k1}, "
                              f"K2 inputs {sorted(k2_in)}")
-    return launches, dict(k1=[k1_in[i] for i in range(n_k1)], k2=k2_in)
+    return launches, dict(k1=[k1_in[i] for i in range(n_k1)], k2=k2_in), stats
+
+
+def count_chunk_fetches(slam) -> dict:
+    """Count a chunked run's steps and the commits that had to fetch their
+    own row (a device tensor handed to `_commit`), through instance
+    attributes that call the class's methods."""
+    seen = dict(steps=0, commit_fetches=0, commits=0)
+    step, commit = slam._chunk_sense_step, slam._commit
+
+    def chunk_step(*args):
+        seen["steps"] += 1
+        return step(*args)
+
+    def counted_commit(feats, pts, packed, ref, index=None):
+        seen["commits"] += 1
+        seen["commit_fetches"] += isinstance(packed, torch.Tensor)
+        return commit(feats, pts, packed, ref, index=index)
+
+    slam._chunk_sense_step, slam._commit = chunk_step, counted_commit
+    return seen
+
+
+def chunked_slam_path(dev, chunk1: dict) -> dict:
+    """Phase 14's orbit at chunk 8: a chunk step's rows against sequential
+    steps bit for bit, then Slam.run(chunk=8) timed beside phase 14's
+    chunk-1 run (`chunk1`: its frames/s and keyframes)."""
+    from cusift_tpu_torch import SiftConfig
+    from cusift_tpu_torch.models.slam import _chunk_step, _frame_step
+
+    seq, frames, build = slam_setup()
+    cfg = SiftConfig(**SLAM_SIFT)
+    slam = build(dev)
+    slam.process_frame(*frames[0])
+    _, kd, kv, kp = slam._ref_cache
+    chunk = torch.from_numpy(np.stack([np.stack(f) for f in frames[1:CHUNK + 1]])).to(dev)
+    ctr = slam._key_ctr
+    _, _, rows = _chunk_step(chunk, slam.intr, kd, kv, kp, cfg, slam.match_cfg,
+                             slam.ransac_cfg, slam._next_keys(CHUNK))
+    slam._key_ctr = ctr
+    seq_rows = torch.stack([
+        _frame_step(chunk[i, 0], chunk[i, 1], slam.intr, kd, kv, kp, cfg, slam.match_cfg,
+                    slam.ransac_cfg, slam._next_key())[2] for i in range(CHUNK)])
+    diff = (rows - seq_rows).abs().max().item()
+    log("chunk", check="chunk rows == sequential rows", frames=CHUNK,
+        bit_equal=torch.equal(rows, seq_rows), max_abs_diff=diff,
+        inliers=[int(v) for v in rows[:, 0].tolist()])
+    if not torch.equal(rows, seq_rows):
+        raise AssertionError(f"chunk rows differ from sequential rows by {diff}")
+
+    t0 = time.perf_counter()
+    build(dev).run(iter(frames[:WARMUP_FRAMES]), chunk=CHUNK)
+    torch.cuda.synchronize()
+    log("chunk", warmup_frames=WARMUP_FRAMES, warmup_s=f"{time.perf_counter() - t0:.3f}")
+
+    slam = build(dev)
+    st = observe(slam)
+    fetch = count_chunk_fetches(slam)
+    torch.cuda.synchronize()
+    reset_counts()
+    recs = slam.run(iter(frames), chunk=CHUNK)
+    t_end = time.perf_counter()
+    launches = read_counts()
+    s = slam.state
+    tracked = sum(1 for r in recs if r.get("tracked", True))
+    ate = slam.ate(seq.poses_r, seq.poses_t)
+    steps = -(-(SLAM_FRAMES - 1) // CHUNK)
+    if (len(recs) != SLAM_FRAMES or tracked != SLAM_FRAMES or not ate < MAX_ATE
+            or s.n_kf_total < 10 or not s.n_kf_total < 2 * chunk1["keyframes"]
+            or fetch["steps"] != steps or fetch["commit_fetches"]
+            or fetch["commits"] != SLAM_FRAMES - 1):
+        raise AssertionError(f"chunked slam: frames {len(recs)}, tracked {tracked}, ATE {ate}, "
+                             f"keyframes {s.n_kf_total} (chunk 1: {chunk1['keyframes']}), "
+                             f"fetches {fetch} for {steps} steps")
+    ev = event_stats(st)
+    fps = (SLAM_FRAMES - 1) / (t_end - st["frame_end"][0])
+    log("chunk", image="x".join(map(str, seq.images.shape[-2:])), frames=SLAM_FRAMES,
+        chunk=CHUNK, steps=fetch["steps"], row_fetches=fetch["steps"], tracked=tracked,
+        keyframes=s.n_kf_total, chunk1_keyframes=chunk1["keyframes"],
+        closures=s.n_closures, ate_m=f"{ate:.6f}", fps_after_first=f"{fps:.3f}",
+        chunk1_fps=f"{chunk1['fps']:.3f}", chunk8_over_chunk1=f"{fps / chunk1['fps']:.3f}",
+        events=ev["n"], event_ms=_spread(ev["ms"]),
+        k1_per_frame=f"{(launches['sampler'] - ev['k1']) / SLAM_FRAMES:.2f}",
+        k2_per_tracking_step=f"{(launches['matcher'] - ev['k2']) / (SLAM_FRAMES - 1):.2f}",
+        launches=json.dumps(launches), card=json.dumps(smi_line()))
+    return launches
+
+
+def stereo_scene():
+    """The north-star stereo scene, cut to STEREO_FRAMES."""
+    from cusift_tpu_torch.data.synthetic import two_plane_stereo_sequence
+
+    t0 = time.perf_counter()
+    seq = two_plane_stereo_sequence(STEREO_FRAMES, 480, 640, **STEREO_SCENE)
+    log("stereo", scene_frames=STEREO_FRAMES, render_s=f"{time.perf_counter() - t0:.3f}")
+    return seq
+
+
+def stereo_pair(dev, seq, timed_runs=10) -> dict:
+    """_extract_stereo_points on frame 0 of the stereo scene."""
+    from cusift_tpu_torch import MatchConfig, SiftConfig
+    from cusift_tpu_torch.models.sift import extract
+    from cusift_tpu_torch.models.stereo import _extract_stereo_points
+
+    cfg = SiftConfig(**STEREO_SIFT)
+    il, ir, intr = (torch.from_numpy(a).to(dev) for a in
+                    (seq.images_l[0], seq.images_r[0], seq.intr))
+    baseline = torch.tensor(np.float32(seq.baseline), device=dev)
+    args = (il, ir, intr, baseline, cfg, MatchConfig())
+    reset_counts()
+    fl, pts, dok = _extract_stereo_points(*args)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    h, w = seq.images_l.shape[-2:]
+    n_k1 = 2 * 2 * cfg.num_octaves_for(h, w)
+    others = sum(launches[k] for k in ("octave", "ori_hist", "desc_raw", "sep"))
+    if launches["sampler"] != n_k1 or launches["matcher"] != 1 or others:
+        raise AssertionError(f"stereo pair launches {launches}: expected K1 {n_k1}, K2 1")
+    ok = dok.cpu().numpy()
+    xi = np.clip(np.round(fl.x.cpu().numpy()).astype(int), 0, w - 1)
+    yi = np.clip(np.round(fl.y.cpu().numpy()).astype(int), 0, h - 1)
+    gt = seq.depths[0][yi, xi]
+    have = ok & (gt > 0.05)
+    rel = np.abs(pts[:, 2].cpu().numpy()[have] - gt[have]) / gt[have]
+    med = float(np.median(rel)) if have.any() else float("inf")
+    if not (ok.sum() >= STEREO_MIN_MATCHES and med < STEREO_DEPTH_REL):
+        raise AssertionError(f"stereo pair: {int(ok.sum())} admissible matches, median "
+                             f"relative depth error {med}")
+    times = wall_ms(lambda: _extract_stereo_points(*args), timed_runs)
+    log("stereo", image=f"{h}x{w}", kpts_left=int(fl.valid.sum()),
+        kpts_right=int(extract(ir, cfg).valid.sum()), admissible=int(ok.sum()),
+        depth_rel_err_median=f"{med:.6f}", pair_ms=_spread(times),
+        launches=json.dumps(launches), card=json.dumps(smi_line()))
+    return launches
+
+
+def stereo_slam_run(dev, seq, chunk: int, n_frames: int) -> dict:
+    """StereoSlam.run over the first n_frames of the scene at `chunk`, after
+    an untimed 16-frame warm-up; checks the soak's bounds."""
+    from cusift_tpu_torch import SiftConfig, SlamConfig
+    from cusift_tpu_torch.data.evaluation import ate_rmse, kitti_drift, trajectory_path_length
+    from cusift_tpu_torch.models.stereo import StereoSlam
+
+    def build():
+        return StereoSlam(seq.intr, seq.baseline, sift_cfg=SiftConfig(**STEREO_SIFT),
+                          slam_cfg=SlamConfig(**STEREO_SLAM_CFG), device=dev)
+
+    pairs = list(zip(seq.images_l[:n_frames], seq.images_r[:n_frames]))
+    t0 = time.perf_counter()
+    build().run(iter(pairs[:WARMUP_FRAMES]), chunk=chunk)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    slam = build()
+    st = observe(slam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    recs = slam.run(iter(pairs), chunk=chunk)
+    t_end = time.perf_counter()
+    launches = read_counts()
+    s = slam.state
+    tracked = sum(1 for r in recs if r.get("tracked", True))
+    gt_r, gt_t = seq.poses_r[:n_frames], seq.poses_t[:n_frames]
+    er, et = slam.trajectory()
+    path = float(trajectory_path_length(gt_r, gt_t)[-1])
+    ate = ate_rmse(er, et, gt_r, gt_t)
+    drift, rot_drift = kitti_drift(er, et, gt_r, gt_t, lengths=(0.25 * path, 0.5 * path),
+                                   step=2)
+    min_tracked = n_frames - (STEREO_FRAMES - STEREO_MIN_TRACKED)
+    others = sum(launches[k] for k in ("octave", "ori_hist", "desc_raw", "sep"))
+    if (len(recs) != n_frames or tracked < min_tracked or not ate < STEREO_ATE_OF_PATH * path
+            or not drift < STEREO_MAX_DRIFT or others or not launches["sampler"]
+            or not launches["matcher"]):
+        raise AssertionError(f"stereo slam chunk {chunk}: frames {len(recs)}, tracked "
+                             f"{tracked}, ATE {ate} of path {path}, drift {drift} %, "
+                             f"launches {launches}")
+    ev = event_stats(st)
+    fps = (n_frames - 1) / (t_end - st["frame_end"][0])
+    out = dict(chunk=chunk, frames=n_frames, fps=fps, tracked=tracked,
+               keyframes=s.n_kf_total, closures=s.n_closures,
+               evicted=s.n_kf_total - s.n_kf, ate_m=ate, path_m=path, drift_pct=drift,
+               kpts_median=statistics.median(r["kpts"] for r in recs),
+               k1_per_frame=(launches["sampler"] - ev["k1"]) / n_frames,
+               k2_per_frame=(launches["matcher"] - ev["k2"]) / n_frames,
+               launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    log("stereo_slam", image="x".join(map(str, seq.images_l.shape[-2:])), chunk=chunk,
+        frames=n_frames, warmup_s=f"{warmup_s:.3f}", tracked=tracked,
+        keyframes=s.n_kf_total, closures=s.n_closures, evicted=out["evicted"],
+        ring=s.n_kf, ate_m=f"{ate:.6f}", path_m=f"{path:.4f}",
+        ate_of_path=f"{ate / path:.5f}", drift_pct=f"{drift:.4f}",
+        rot_drift_deg_per_m=f"{rot_drift:.4f}", kpts_median=out["kpts_median"],
+        kpts_min=min(r["kpts"] for r in recs), fps_with_ba=f"{fps:.3f}",
+        events=ev["n"], event_ms=_spread(ev["ms"]),
+        k1_per_frame=f"{out['k1_per_frame']:.2f}", k2_per_frame=f"{out['k2_per_frame']:.2f}",
+        k1_per_event=f"{ev['k1'] / max(ev['n'], 1):.2f}",
+        k2_per_event=f"{ev['k2'] / max(ev['n'], 1):.2f}",
+        peak_mem_gb=f"{out['peak_mem_gb']:.3f}", launches=json.dumps(launches),
+        card=json.dumps(smi_line()))
+    return out
+
+
+def stereo_slam_path(dev, seq) -> dict:
+    """Phase 18: the stereo scene at chunk 1 and at chunk 8."""
+    runs = {c: stereo_slam_run(dev, seq, c, n) for c, n in ((1, STEREO_FRAMES),
+                                                           (CHUNK, STEREO_CHUNK_FRAMES))}
+    log("stereo_slam", chunk8_over_chunk1_fps=f"{runs[CHUNK]['fps'] / runs[1]['fps']:.3f}",
+        chunk8_frames=STEREO_CHUNK_FRAMES)
+    return runs
 
 
 def check_sampler_slam(dev, calls) -> dict:
@@ -1201,11 +1449,23 @@ def main() -> int:
     batch = batched_fused_path(dev, imgs, h_true)
     sep = separable_path(dev)
     rgbd = rgbd_pair(dev)
-    slam, slam_inputs = slam_path(dev)
+    slam, slam_inputs, slam_stats = slam_path(dev)
     k1_slam = check_sampler_slam(dev, slam_inputs["k1"])
     k2_slam = check_matcher_slam(dev, slam_inputs["k2"])
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_slam["max_abs_err"])
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_slam["max_abs_err"])
+    t0 = time.perf_counter()
+    chunked = chunked_slam_path(dev, slam_stats)
+    stereo_seq = stereo_scene()
+    pair = stereo_pair(dev, stereo_seq)
+    stereo = stereo_slam_path(dev, stereo_seq)
+    log("phases 16-18", seconds=f"{time.perf_counter() - t0:.3f}")
+    stereo_launches = {
+        key: dict(pair=pair[key], per_frame_chunk1=stereo[1][f"k{i}_per_frame"],
+                  per_frame_chunk8=stereo[CHUNK][f"k{i}_per_frame"],
+                  chunk8_run=stereo[CHUNK]["launches"][key],
+                  chunk8_frames=STEREO_CHUNK_FRAMES)
+        for i, key in ((1, "sampler"), (2, "matcher"))}
 
     src = "cusift_tpu_torch/csrc/"
     tpu = "cusift_tpu/ops/pallas/"
@@ -1214,12 +1474,16 @@ def main() -> int:
              replaces=tpu + "sampler.py:588", path="two-view (phase 5)",
              launches=launches["sampler"], rgbd_pair_launches=rgbd["sampler"],
              slam_launches=slam["sampler"], slam_path="RGB-D SLAM (phase 14)",
-             slam_frame=k1_slam, **k1),
+             slam_frame=k1_slam, chunked_slam_launches=chunked["sampler"],
+             stereo_launches=stereo_launches["sampler"],
+             stereo_path="stereo SLAM (phase 18)", **k1),
         dict(name="match_top2", route="cuda", source=src + "matcher.cu",
              replaces=tpu + "matcher.py:43", path="two-view (phase 5)",
              launches=launches["matcher"], rgbd_pair_launches=rgbd["matcher"],
              slam_launches=slam["matcher"], slam_path="RGB-D SLAM (phase 14)",
-             slam_shape=k2_slam, **k2),
+             slam_shape=k2_slam, chunked_slam_launches=chunked["matcher"],
+             stereo_launches=stereo_launches["matcher"],
+             stereo_path="stereo SLAM (phase 18)", **k2),
         dict(name="fused_octave", route="cuda", source=src + "octave.cu",
              replaces=tpu + "octave.py:186", path="batched fused (phase 11)",
              launches=batch["octave"], **k3),

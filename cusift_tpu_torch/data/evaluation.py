@@ -1,10 +1,12 @@
-"""Trajectory evaluation, ATE and RPE in the TUM RGB-D conventions (a numpy
-copy of `camera_centers`, `horn_align`, `ate_rmse` and `rpe` from
+"""Trajectory evaluation, ATE and RPE in the TUM RGB-D conventions and
+KITTI's drift (a numpy copy of `camera_centers`, `horn_align`,
+`ate_rmse`, `trajectory_path_length`, `kitti_drift` and `rpe` from
 `cusift_tpu/data/evaluation.py`).
 
 ATE aligns the estimated camera centres to ground truth with the
 closed-form rigid (or similarity) fit and reports the RMSE of the
-residuals; RPE measures local drift over a fixed frame delta.
+residuals; RPE measures local drift over a fixed frame delta; KITTI's
+drift averages the relative error over subsequences of fixed path length.
 """
 
 from __future__ import annotations
@@ -45,6 +47,53 @@ def ate_rmse(est_r, est_t, gt_r, gt_t, with_scale: bool = False) -> float:
     s, r, t = horn_align(ce, cg, with_scale)
     resid = (s * ce @ r.T + t) - cg
     return float(np.sqrt((resid ** 2).sum(-1).mean()))
+
+
+def trajectory_path_length(poses_r, poses_t) -> np.ndarray:
+    """[N] cumulative path length along the camera-centre trajectory."""
+    c = camera_centers(poses_r, poses_t)
+    steps = np.linalg.norm(np.diff(c, axis=0), axis=-1)
+    return np.concatenate([[0.0], np.cumsum(steps)])
+
+
+def kitti_drift(est_r, est_t, gt_r, gt_t,
+                lengths=(100.0, 200.0, 300.0, 400.0, 500.0, 600.0, 700.0, 800.0),
+                step: int = 10):
+    """KITTI odometry drift: (translation %, rotation deg/m).
+
+    Over all subsequences of each path length L (starts every `step`
+    frames, L measured along the ground-truth path), the relative-pose
+    error between the estimated and true motion, translation normalised
+    by L (percent) and rotation by L (deg/m), averaged.  NaN when no
+    subsequence is long enough (pass short `lengths` for short sequences).
+    """
+    est_r, est_t = np.asarray(est_r, np.float64), np.asarray(est_t, np.float64)
+    gt_r, gt_t = np.asarray(gt_r, np.float64), np.asarray(gt_t, np.float64)
+    dist = trajectory_path_length(gt_r, gt_t)
+    n = len(gt_r)
+
+    def rel(r, t, i, j):
+        # camera-i-frame motion taking frame-j points to frame-i points
+        rr = r[i] @ r[j].T
+        return rr, t[i] - rr @ t[j]
+
+    t_errs, r_errs = [], []
+    for first in range(0, n, step):
+        for length in lengths:
+            # the first frame whose ground-truth distance exceeds first's by length
+            j = int(np.searchsorted(dist, dist[first] + length))
+            if j >= n:
+                continue
+            re_, te_ = rel(est_r, est_t, first, j)
+            rg_, tg_ = rel(gt_r, gt_t, first, j)
+            rd = re_.T @ rg_
+            td = re_.T @ (tg_ - te_)
+            ang = np.arccos(np.clip((np.trace(rd) - 1) / 2, -1.0, 1.0))
+            t_errs.append(np.linalg.norm(td) / length)
+            r_errs.append(np.degrees(ang) / length)
+    if not t_errs:
+        return float("nan"), float("nan")
+    return float(np.mean(t_errs) * 100.0), float(np.mean(r_errs))
 
 
 def rpe(est_r, est_t, gt_r, gt_t, delta: int = 1):

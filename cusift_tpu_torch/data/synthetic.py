@@ -1,6 +1,7 @@
 """Synthetic ground-truth data in numpy + scipy (twin of
 `cusift_tpu/data/synthetic.py`): textured images, homography-warped pairs,
-the planar RGB-D sequence, and random BA and pose-graph problems.
+the planar RGB-D sequence, the two-plane sequence and its rectified stereo
+form, and random BA and pose-graph problems.
 
 The reference module imports jax and renders with cv2; this twin needs
 neither.  It consumes the same `default_rng(seed)` draws in the same order,
@@ -186,6 +187,162 @@ def planar_rgbd_sequence(n_frames: int = 12, h: int = 480, w: int = 640,
                         poses_r=np.stack(rots).astype(np.float32),
                         poses_t=np.stack(trans).astype(np.float32),
                         intr=DEFAULT_INTR.copy(), timestamps=np.array(stamps))
+
+
+def two_plane_sequence(n_frames: int = 8, h: int = 480, w: int = 640,
+                       seed: int = 0, near: float = 3.0, far: float = 6.0,
+                       motion_scale: float = 1.0, path: str = "sweep",
+                       blur_frames: tuple = (), blur_sigma: float = 5.0,
+                       amplitude: float = 1.0) -> RGBDSequence:
+    """Two textured fronto-parallel planes: the world splits at x = 0 into
+    a near plane (z = near, left) and a far plane (z = far, right), each
+    with its own texture, so the scene has depth structure while each
+    plane's image stays an exact homography and the depth map analytic.
+
+    path: "sweep" (sideways and forward), "loop" (a closed circuit back to
+    the start pose at the last frame) or "forward" (dominant approach
+    toward the planes).  `blur_frames` are rendered heavily low-passed
+    (blur_sigma), a low-texture burst.  `amplitude` scales the
+    translations only.  Poses are world-to-camera.
+    """
+    # the fr1-like intrinsics scaled to the render size
+    intr = DEFAULT_INTR * np.array([w / 640.0, h / 480.0, w / 640.0, h / 480.0], np.float32)
+    tex = {-1: textured_image(h, w, seed=seed, blobs=300, detail=0.25),
+           +1: textured_image(h, w, seed=seed + 101, blobs=300, detail=0.25)}
+    blur_set = set(int(b) for b in blur_frames)
+    images, depths, rots, trans, stamps = [], [], [], [], []
+    for f in range(n_frames):
+        r_wc, t_wc = _two_plane_pose(f, n_frames, path, motion_scale, amplitude)
+        img_f, depth_f = _two_plane_render(r_wc, t_wc, tex, intr, h, w, near, far)
+        if f in blur_set:
+            img_f = _cv2_blur(img_f.astype(np.float32), blur_sigma)
+        images.append(img_f.astype(np.float32))
+        depths.append(depth_f.astype(np.float32))
+        rots.append(r_wc)
+        trans.append(t_wc)
+        stamps.append(f / 10.0)
+    return RGBDSequence(images=np.stack(images), depths=np.stack(depths),
+                        poses_r=np.stack(rots).astype(np.float32),
+                        poses_t=np.stack(trans).astype(np.float32),
+                        intr=intr, timestamps=np.array(stamps))
+
+
+def _two_plane_pose(f: int, n_frames: int, path: str, motion_scale: float,
+                    amplitude: float):
+    """World-to-camera pose of frame f on the sweep, loop or forward path."""
+    s = f / max(n_frames - 1, 1)
+    if path == "loop":
+        # every component returns to 0 at s = 1, with a far excursion
+        # mid-sequence and a gentle wiggle that keeps parallax
+        env = np.sin(np.pi * s) ** 2
+        xi = np.array([
+            0.70 * env * motion_scale,
+            0.05 * np.sin(2 * np.pi * s) * motion_scale,
+            0.35 * np.sin(2 * np.pi * s) * motion_scale,
+            0.02 * np.sin(2 * np.pi * s) * motion_scale,
+            0.08 * env * motion_scale,
+            0.02 * np.sin(4 * np.pi * s) * motion_scale,
+        ])
+    elif path == "forward":
+        # the camera centre advances toward the planes by amplitude *
+        # motion_scale in all, with a small lateral and rotational wiggle
+        xi = np.array([
+            0.04 * np.sin(2 * np.pi * s) * motion_scale,
+            0.02 * np.sin(4 * np.pi * s + 1.0) * motion_scale,
+            -1.00 * s * motion_scale,
+            0.01 * np.sin(2 * np.pi * s) * motion_scale,
+            0.02 * np.sin(2 * np.pi * s + 0.5) * motion_scale,
+            0.01 * np.sin(4 * np.pi * s) * motion_scale,
+        ])
+    else:
+        xi = np.array([
+            0.50 * s * motion_scale,
+            0.06 * np.sin(2 * np.pi * s) * motion_scale,
+            0.25 * s * motion_scale,
+            0.02 * np.sin(2 * np.pi * s) * motion_scale,
+            0.05 * s * motion_scale,
+            0.02 * np.sin(4 * np.pi * s) * motion_scale,
+        ])
+    xi[:3] *= amplitude
+    return se3_exp(xi)
+
+
+def _two_plane_render(r_wc, t_wc, tex, intr, h, w, near, far):
+    """Render the two-plane world (image, depth) from one world-to-camera pose."""
+    fx, fy, cx, cy = intr
+    k = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
+    k_inv = np.linalg.inv(k)
+    n_w = np.array([0.0, 0.0, 1.0])
+    uu, vv = np.meshgrid(np.arange(w), np.arange(h))
+    rays = np.stack([(uu - cx) / fx, (vv - cy) / fy, np.ones_like(uu, np.float64)], -1)
+    n_c = r_wc @ n_w
+    img_f = np.zeros((h, w), np.float32)
+    depth_f = np.zeros((h, w), np.float64)
+    for plane_d, side in ((near, -1), (far, +1)):
+        h_mat = k @ (r_wc + np.outer(t_wc, n_w) / plane_d) @ k_inv
+        warp = _warp(tex[side], h_mat)
+        d_c = plane_d + n_c @ t_wc
+        denom = rays @ n_c
+        z = np.where(np.abs(denom) > 1e-9, d_c / denom, 0.0)
+        # the world x of the ray's intersection decides which plane owns it
+        world = (rays * z[..., None] - t_wc) @ r_wc          # R^T (X_c - t)
+        own = (world[..., 0] * side >= 0) & (z > 0.05)
+        img_f = np.where(own, warp, img_f)
+        depth_f = np.where(own, z, depth_f)
+    return img_f.astype(np.float32), depth_f.astype(np.float32)
+
+
+class StereoSequence(NamedTuple):
+    """Rectified synthetic stereo sequence with left-camera ground truth."""
+
+    images_l: np.ndarray   # [T, H, W] float32 in [0, 1]
+    images_r: np.ndarray   # [T, H, W]
+    depths: np.ndarray     # [T, H, W] analytic LEFT depth (an oracle only)
+    poses_r: np.ndarray    # [T, 3, 3] world-to-left-camera
+    poses_t: np.ndarray    # [T, 3]
+    intr: np.ndarray       # [4] fx fy cx cy (shared by both cameras)
+    baseline: float        # metres; the right camera sits at +baseline along x
+    timestamps: np.ndarray
+
+
+def two_plane_stereo_sequence(n_frames: int = 8, h: int = 480, w: int = 640,
+                              seed: int = 0, near: float = 3.0, far: float = 6.0,
+                              motion_scale: float = 1.0, path: str = "sweep",
+                              amplitude: float = 1.0, baseline: float = 0.12,
+                              blobs: int = 300,
+                              detail_octaves: int = 1) -> StereoSequence:
+    """Rectified stereo form of `two_plane_sequence` (a KITTI-style rig).
+
+    The right camera shares the left's orientation and sits `baseline`
+    metres along its +x axis (X_right = X_left - [b, 0, 0]): the true
+    disparity is fx*b/z and rows align exactly, as `ops/stereo.py`
+    assumes.  Depth maps are the left camera's analytic depths (an oracle
+    for tests; the stereo frontend never reads them).  `blobs` and
+    `detail_octaves` set the texture's keypoint yield.
+    """
+    intr = DEFAULT_INTR * np.array([w / 640.0, h / 480.0, w / 640.0, h / 480.0], np.float32)
+    tex = {-1: textured_image(h, w, seed=seed, blobs=blobs, detail=0.25,
+                              detail_octaves=detail_octaves),
+           +1: textured_image(h, w, seed=seed + 101, blobs=blobs, detail=0.25,
+                              detail_octaves=detail_octaves)}
+    il, ir, depths, rots, trans, stamps = [], [], [], [], [], []
+    tb = np.array([baseline, 0.0, 0.0])
+    for f in range(n_frames):
+        r_wc, t_wc = _two_plane_pose(f, n_frames, path, motion_scale, amplitude)
+        img_l, depth_l = _two_plane_render(r_wc, t_wc, tex, intr, h, w, near, far)
+        img_r, _ = _two_plane_render(r_wc, t_wc - tb, tex, intr, h, w, near, far)
+        il.append(img_l)
+        ir.append(img_r)
+        depths.append(depth_l)
+        rots.append(r_wc)
+        trans.append(t_wc)
+        stamps.append(f / 10.0)
+    return StereoSequence(images_l=np.stack(il), images_r=np.stack(ir),
+                          depths=np.stack(depths),
+                          poses_r=np.stack(rots).astype(np.float32),
+                          poses_t=np.stack(trans).astype(np.float32),
+                          intr=intr, baseline=float(baseline),
+                          timestamps=np.array(stamps))
 
 
 def ba_problem(seed: int = 0, n_cams: int = 6, n_pts: int = 80,

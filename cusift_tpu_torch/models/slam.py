@@ -22,10 +22,18 @@ the device instead (`lax.cond`); the results are the same.  The split form
 one by one.  With `defer_events` the event's fetch waits until the next
 reader of the pose/edge state.
 
+`run(chunk=N)` tracks N frames a step against one reference keyframe
+(`_chunk_step`: one `extract_batch` over the N images, then matching and
+RANSAC frame by frame) and copies the [N, 22] rows to the host once; the
+host then commits the frames in order, re-gating keyframe promotion
+against any keyframe inserted earlier in the chunk.  Row i equals
+`_frame_step` of frame i against the same reference with the same
+generator, to the bit.
+
 Randomness: each RANSAC call gets its own `torch.Generator`, seeded from
 (seed, counter) as the reference derives one threefry key per call, so
-checkpoints keep the key's meaning.  Two options wait for later work and
-raise `NotImplementedError`: `run(chunk > 1)` and `dist_ba=True`.
+checkpoints keep the key's meaning.  `dist_ba=True` waits for the
+distributed BA and raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -46,11 +54,11 @@ from ..ops.ransac import find_rigid
 from ..optim.lie import inverse, se3_log
 from ..optim.posegraph import PoseGraph, optimize as pg_optimize
 from ..utils.device import as_input
-from ..utils.pipeline import device_frames
+from ..utils.pipeline import device_chunks, device_frames
 from ..utils.precision import f32_matmuls
 from .evict import select_victim
 from .local_ba import window_ba
-from .sift import extract
+from .sift import SiftFeatures, extract, extract_batch
 from .twoview import depth_at
 
 # keyframes scored per batched matmul in `_kf_scores`: [16, N, N] float32
@@ -65,12 +73,23 @@ def _f32(*xs) -> torch.Tensor:
     return torch.stack([torch.as_tensor(x, device=dev).to(torch.float32) for x in xs])
 
 
+def _frame_of(feats: SiftFeatures, i: int) -> SiftFeatures:
+    """Frame i of a batched feature set."""
+    return SiftFeatures(*(a[i] for a in feats))
+
+
+def _backproject_features(f: SiftFeatures, depth, intr):
+    """Camera-frame 3D points of the features (z = 0 where invalid) and
+    their validity."""
+    d = depth_at(depth, f.x, f.y) * f.valid
+    pts = backproject(torch.stack([f.x, f.y], -1), d, intr[0], intr[1], intr[2], intr[3])
+    return pts, (d > 1e-6) & f.valid
+
+
 def _extract_with_points(img, depth, intr, sift_cfg: SiftConfig):
     """Features + camera-frame 3D backprojections (z = 0 where invalid)."""
     f = extract(img, sift_cfg)
-    d = depth_at(depth, f.x, f.y) * f.valid
-    pts = backproject(torch.stack([f.x, f.y], -1), d, intr[0], intr[1], intr[2], intr[3])
-    return f, pts, (d > 1e-6) & f.valid
+    return (f, *_backproject_features(f, depth, intr))
 
 
 def _track(desc_a, valid_a, pts_a, desc_b, valid_b, pts_b,
@@ -82,14 +101,11 @@ def _track(desc_a, valid_a, pts_a, desc_b, valid_b, pts_b,
     return find_rigid(pts_a, pb, ok, ransac_cfg, generator), m
 
 
-@f32_matmuls
-def _frame_step(img, depth, intr, ref_desc, ref_valid, ref_pts,
-                sift_cfg: SiftConfig, match_cfg: MatchConfig,
-                ransac_cfg: RansacConfig, generator):
-    """One tracking step: extract + match + rigid RANSAC + the
-    keyframe-decision scalars, packed into ONE [22] float tensor
+def _tracking_row(f: SiftFeatures, pts, pvalid, ref_desc, ref_valid, ref_pts,
+                  match_cfg: MatchConfig, ransac_cfg: RansacConfig, generator):
+    """Match + rigid RANSAC of one frame against the reference keyframe,
+    with the keyframe-decision scalars packed into ONE [22] float tensor
     [inliers, ok, kpts, matches | rel_r 9 | rel_t 3 | xi 6]."""
-    f, pts, pvalid = _extract_with_points(img, depth, intr, sift_cfg)
     m = match(f.desc, f.valid, ref_desc, ref_valid, match_cfg)
     pb = ref_pts[m.idx.long()]
     ok = m.ok & pvalid & (pb[:, 2] > 1e-6)
@@ -97,9 +113,42 @@ def _frame_step(img, depth, intr, ref_desc, ref_valid, ref_pts,
     # rig: X_ref = R X_cur + t  =>  T_cur<-ref = (R, t)^-1
     rel_r, rel_t = inverse(rig.r, rig.t)
     xi = se3_log(rel_r, rel_t)
-    packed = torch.cat([_f32(rig.num_inliers, rig.ok, f.valid.sum(), m.ok.sum()),
-                        rel_r.reshape(-1), rel_t, xi])
-    return f, pts, packed
+    return torch.cat([_f32(rig.num_inliers, rig.ok, f.valid.sum(), m.ok.sum()),
+                      rel_r.reshape(-1), rel_t, xi])
+
+
+@f32_matmuls
+def _frame_step(img, depth, intr, ref_desc, ref_valid, ref_pts,
+                sift_cfg: SiftConfig, match_cfg: MatchConfig,
+                ransac_cfg: RansacConfig, generator):
+    """One tracking step: extract + match + rigid RANSAC + the
+    keyframe-decision scalars (`_tracking_row`)."""
+    f, pts, pvalid = _extract_with_points(img, depth, intr, sift_cfg)
+    return f, pts, _tracking_row(f, pts, pvalid, ref_desc, ref_valid, ref_pts,
+                                 match_cfg, ransac_cfg, generator)
+
+
+@f32_matmuls
+def _chunk_step(frames, intr, ref_desc, ref_valid, ref_pts,
+                sift_cfg: SiftConfig, match_cfg: MatchConfig,
+                ransac_cfg: RansacConfig, generators):
+    """Track a [N, 2, H, W] chunk of (image, depth) frames against ONE
+    reference keyframe: one `extract_batch` over the N images, then each
+    frame's backprojection, match and rigid RANSAC with its own generator.
+
+    Returns the batched features, the points [N, K, 3] and the packed rows
+    [N, 22], the one tensor the host copies per chunk.  Row i equals
+    `_frame_step` of frame i with generator i.
+    """
+    feats = extract_batch(frames[:, 0].contiguous(), sift_cfg)
+    pts, rows = [], []
+    for i, gen in enumerate(generators):
+        f = _frame_of(feats, i)
+        p, pvalid = _backproject_features(f, frames[i, 1], intr)
+        rows.append(_tracking_row(f, p, pvalid, ref_desc, ref_valid, ref_pts,
+                                  match_cfg, ransac_cfg, gen))
+        pts.append(p)
+    return feats, torch.stack(pts), torch.stack(rows)
 
 
 @f32_matmuls
@@ -268,8 +317,15 @@ class Slam:
             edge_i=[], edge_j=[], meas_r=[], meas_t=[], weight=[],
             traj_ref=[], traj_rel_r=[], traj_rel_t=[], traj_ok=[])
         self.metrics: list[dict] = []
-        # deferred fused event: [j, packed device result, metric record]
+        # deferred fused event: [j, packed device result, metric record, lo, w]
         self._pending_event: list | None = None
+        # deferral serves the sequential path only; a chunked run turns it off
+        self._defer_ok = True
+        # a chunked run's in-flight reference slot, [slot] (see _run_chunked)
+        self._chunk_ref: list | None = None
+        # the last keyframe inserted in the current chunk, as its pose
+        # relative to the chunk's reference (re-gates promotion in _commit)
+        self._chunk_last_insert: tuple | None = None
         # optional per-frame callback, called with each committed record
         self.on_metric = None
         # optional callback on fused keyframe events: on_event("dispatch", j)
@@ -307,14 +363,16 @@ class Slam:
         """Free one ring slot for a new keyframe; returns the slot or None.
 
         Victim policy: `models/evict.py` with cfg.kf_evict.  Slot 0 (the
-        gauge origin) and the newest `local_ba_window` slots are never
-        evicted.
+        gauge origin), the newest `local_ba_window` slots and a chunked
+        run's in-flight reference (its frames' rows resolve through that
+        slot) are never evicted.
         """
         s = self.state
         victim = select_victim(
             self.cfg.kf_evict, s.kf_pose_r, s.kf_pose_t, s.n_kf,
             guard=max(self.cfg.local_ba_window, 2),
-            edges=zip(s.edge_i, s.edge_j, s.weight))
+            edges=zip(s.edge_i, s.edge_j, s.weight),
+            pinned=self._chunk_ref[0] if self._chunk_ref is not None else -1)
         if victim is None:
             return None
         self._remove_keyframe_slot(victim)
@@ -379,6 +437,8 @@ class Slam:
         ref = self._ref_cache[0]
         if ref > v:        # cached views are by value; only the index moves
             self._ref_cache = (ref - 1,) + self._ref_cache[1:]
+        if self._chunk_ref is not None and self._chunk_ref[0] > v:
+            self._chunk_ref[0] -= 1     # never == v: eviction pins it
 
     def _add_edge(self, i, j, rel_r, rel_t, weight=1.0):
         """Edge constraint: measured T_i * T_j^-1 (world-to-cam convention)."""
@@ -390,10 +450,20 @@ class Slam:
         s.weight.append(float(weight))
 
     def _next_key(self) -> torch.Generator:
-        """A fresh generator for one RANSAC call, seeded from (seed, counter)."""
+        """A fresh generator for one RANSAC call, seeded from (seed, counter).
+
+        The seed's high word is the Slam seed; its low word mixes the seed
+        into the counter, since the CPU generator (mt19937) keeps only the
+        low 32 bits of its seed.  Seed 0 gives the counter itself.
+        """
         self._key_ctr += 1
-        seed = ((self._seed & 0xFFFFFFFF) << 32) | (self._key_ctr & 0xFFFFFFFF)
-        return torch.Generator(device=self.device).manual_seed(seed)
+        s = self._seed & 0xFFFFFFFF
+        low = (self._key_ctr + s * 0x9E3779B9) & 0xFFFFFFFF
+        return torch.Generator(device=self.device).manual_seed((s << 32) | low)
+
+    def _next_keys(self, n: int) -> list[torch.Generator]:
+        """n fresh generators, as n calls of `_next_key` give them."""
+        return [self._next_key() for _ in range(n)]
 
     # ---------- main loop ----------
 
@@ -427,9 +497,11 @@ class Slam:
                            self.ransac_cfg, key)
 
     def _chunk_sense_step(self, fchunk, kd, kv, kp, keys):
-        """N-frame tracking step against one reference (override hook)."""
-        raise NotImplementedError("Slam.run(chunk>1): chunked tracking is not "
-                                  "ported yet")
+        """N-frame tracking step against one reference (override hook).
+
+        `fchunk` is the packed [N, 2, H, W] chunk (image and aux planes)."""
+        return _chunk_step(fchunk, self.intr, kd, kv, kp, self.sift_cfg,
+                           self.match_cfg, self.ransac_cfg, keys)
 
     def _bootstrap(self, img, depth) -> dict:
         s = self.state
@@ -454,10 +526,17 @@ class Slam:
         feats, pts, packed = self._sense_step(img, depth, kd, kv, kp, self._next_key())
         return feats, pts, packed, ref
 
-    def _commit(self, feats, pts, packed, ref) -> dict:
-        """Fetch one step's packed scalars and apply the SLAM decisions."""
+    def _commit(self, feats, pts, packed, ref, index=None) -> dict:
+        """Fetch one step's packed scalars and apply the SLAM decisions.
+
+        `index` selects one frame of a chunk step's batched features, whose
+        packed row the caller has fetched already; the selection is made
+        only where the frame's features are read (relocalisation, a
+        keyframe insert).
+        """
         s = self.state
-        packed = packed.cpu().numpy()                    # the one fetch
+        if isinstance(packed, torch.Tensor):
+            packed = packed.cpu().numpy()                # the one fetch
         inl = int(packed[0])
         n_kpts = int(packed[2])
         n_matches = int(packed[3])
@@ -470,6 +549,8 @@ class Slam:
         if not tracked:
             # relocalisation: retrieve the most similar keyframe over the
             # whole map and verify it geometrically
+            if index is not None:
+                feats, pts, index = _frame_of(feats, index), pts[index], None
             reloc = self._try_relocalise(feats.desc, feats.valid, pts, ref)
             if reloc is not None:
                 ref, rel_r, rel_t, inl = reloc
@@ -485,12 +566,26 @@ class Slam:
                                    s.kf_pts[ref].clone())
             else:
                 # still lost: copy the previous frame's pose and reference
+                # (in a chunk `ref` may be stale: the copied pose is only
+                # meaningful against its own reference)
                 rel_r = np.asarray(s.traj_rel_r[-1])
                 rel_t = np.asarray(s.traj_rel_t[-1])
                 ref = int(s.traj_ref[-1])
 
         trans_mag = float(np.linalg.norm(xi[:3]))
         rot_mag = float(np.linalg.norm(xi[3:]))
+        if (self._chunk_ref is not None and not relocalised
+                and self._chunk_last_insert is not None):
+            # in a chunk, xi measures motion against the reference taken at
+            # dispatch, part of which a keyframe inserted earlier in the
+            # chunk already covers: re-gate against that insert, or the lag
+            # promotes about twice the keyframes a sequential run does
+            ri, ti = self._chunk_last_insert
+            rel2_r = rel_r @ ri.T
+            rel2_t = rel_t - rel2_r @ ti
+            trans_mag = float(np.linalg.norm(rel2_t))
+            cosang = np.clip((np.trace(rel2_r) - 1.0) / 2.0, -1.0, 1.0)
+            rot_mag = float(np.arccos(cosang))
         need_kf = tracked and (
             inl < self.cfg.kf_min_inliers
             or trans_mag > self.cfg.kf_max_translation
@@ -515,11 +610,18 @@ class Slam:
                         edge_ref -= 1
             added_kf = s.n_kf < self.cfg.max_keyframes
         if added_kf:
+            if index is not None:
+                feats, pts = _frame_of(feats, index), pts[index]
             desc, valid = feats.desc, feats.valid
             j = self._add_keyframe(desc, valid, pts, pose_r, pose_t)
             if edge_ref >= 0:
                 # odometry edge ref -> j measured T_ref * T_j^-1
                 self._add_edge(edge_ref, j, rel_r.T, -(rel_r.T @ rel_t), 1.0)
+            if self._chunk_ref is not None:
+                # a relocalised insert's pose is relative to the recovered
+                # keyframe, not the chunk's reference: it cannot re-gate
+                self._chunk_last_insert = (None if relocalised else
+                                           (np.asarray(rel_r), np.asarray(rel_t)))
             if self._fused_events:
                 loop_found = self._kf_event(j)
             else:
@@ -556,11 +658,14 @@ class Slam:
 
         Frame i+1 is uploaded by a feeder thread while frame i runs
         (`utils/pipeline.py`), and a deferred keyframe event is applied at
-        the next reader of the pose/edge state.
+        the next reader of the pose/edge state.  chunk > 1 tracks `chunk`
+        frames a step with one fetch of their packed rows (`_chunk_step`);
+        keyframe decisions then lag by up to chunk - 1 frames, and events
+        are never deferred.
         """
         if chunk > 1:
-            raise NotImplementedError("Slam.run(chunk>1): chunked tracking is not "
-                                      "ported yet")
+            return self._run_chunked(frames, max_frames, chunk)
+        self._defer_ok = True
         for i, f in enumerate(device_frames(frames, self.device)):
             if max_frames is not None and i >= max_frames:
                 break
@@ -569,6 +674,44 @@ class Slam:
                 continue
             self._commit(*self._dispatch(f[0], f[1]))
         self._drain_event()   # callers read poses/closure counts next
+        return self.metrics
+
+    def _run_chunked(self, frames, max_frames, chunk: int) -> list[dict]:
+        self._defer_ok = False
+        it = iter(frames)
+        if max_frames is not None and max_frames <= 0:
+            return self.metrics
+        if self.state.n_kf == 0:
+            first = next(it, None)
+            if first is None:
+                return self.metrics
+            self._bootstrap(first[0], first[1])
+            if max_frames is not None:
+                max_frames -= 1
+        done = 0
+        for fchunk, n_valid in device_chunks(it, chunk, self.device):
+            if max_frames is not None:
+                n_valid = min(n_valid, max_frames - done)
+                if n_valid <= 0:
+                    break
+            ref, kd, kv, kp = self._ref_cache
+            # the keys of the padded frames are consumed too, as the
+            # reference's are: a checkpoint's counter keeps its meaning
+            feats, pts, packed = self._chunk_sense_step(fchunk, kd, kv, kp,
+                                                        self._next_keys(chunk))
+            rows = packed.cpu().numpy()                  # the one fetch
+            # every frame of the chunk was measured against `ref`, whose
+            # slot must stay resolvable while its frames commit: eviction
+            # pins this holder and shifts it
+            self._chunk_ref = holder = [ref]
+            self._chunk_last_insert = None
+            try:
+                for i in range(n_valid):
+                    self._commit(feats, pts, rows[i], holder[0], index=i)
+            finally:
+                self._chunk_ref = None
+            done += n_valid
+        self._drain_event()
         return self.metrics
 
     def _retrieve_and_verify(self, desc, valid, pts, limit: int,
@@ -648,7 +791,7 @@ class Slam:
             self.cfg.loop_min_score, self.cfg.loop_min_inliers)
         if self.on_event:
             self.on_event("enqueued", j)
-        if self.cfg.defer_events:
+        if self.cfg.defer_events and self._defer_ok:
             # the device runs the event while the host streams the next
             # frames; any reader of pose/edge state drains first
             self._pending_event = [j, dev, None, lo, w]

@@ -3,7 +3,9 @@
 The reference's `conv_backend` values "vpu", "mxu" and "mxu2" are three
 TPU layouts of one correlation with the same taps; here one form serves
 all of them: reflect-101 padding plus a one-dimensional `conv2d` per
-axis, rows first, over any leading batch axes.  The float32 pin
+axis, rows first, over any leading batch axes.  The direct pyramid
+(`ops/pyramid.py:octave_levels_direct`) convolves by banded matrices
+instead (`_band_matrix`, `_conv1d_windows`), one per level.  The float32 pin
 (`utils/precision.py`) keeps cuDNN out of TF32, which would break the
 reference's 1e-5 pyramid parity.
 """
@@ -64,6 +66,66 @@ def _conv1d(img: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     else:
         out = F.conv2d(x, weight)
     return out.reshape(img.shape)
+
+
+def _band_matrix(taps: np.ndarray, block: int = 128) -> np.ndarray:
+    """[block + 2r, block] banded correlation operator:
+    out[c] = sum_j taps[j] * window[c + j], so T[k, c] = taps[k - c]."""
+    r = (taps.shape[0] - 1) // 2
+    t = np.zeros((block + 2 * r, block), np.float32)
+    for c in range(block):
+        t[c:c + 2 * r + 1, c] = taps
+    return t
+
+
+def _reflect_index_pad(x: torch.Tensor, r: int, axis: int) -> torch.Tensor:
+    """Reflect-101 padding by r along `axis`, r may exceed the axis length
+    (the reflection repeats, as numpy's and jax's "reflect" pads do)."""
+    n = x.shape[axis]
+    if n == 1:
+        idx = torch.zeros(n + 2 * r, dtype=torch.int64)
+    else:
+        period = 2 * (n - 1)
+        idx = torch.arange(-r, n + r) % period
+        idx = torch.where(idx < n, idx, period - idx)
+    return x.index_select(axis, idx.to(x.device))
+
+
+def _conv1d_windows(x: torch.Tensor, tmats: torch.Tensor, r: int, axis: int,
+                    block: int, batched_in: bool = False) -> torch.Tensor:
+    """Correlation along `axis` (-1 or -2) by banded operators: reflect-pad
+    by r, zero-pad the axis to a multiple of `block`, cut it into windows
+    of block + 2r overlapping by 2r, multiply each window by the operator,
+    and trim.
+
+    tmats: one operator [win, B], or one per level [L, win, B], and the
+    output then carries a leading L axis; `batched_in` says that `x`
+    carries it already (each level multiplies by its own operator).
+    """
+    ax = axis % x.ndim
+    last = ax == x.ndim - 1
+    if not last and ax != x.ndim - 2:
+        raise ValueError(f"axis {axis}: -1 or -2 only")
+    n = x.shape[ax]
+    nb = -(-n // block)
+    xp = _reflect_index_pad(x, r, ax)
+    tail = nb * block - n
+    if tail:
+        xp = F.pad(xp, (0, tail) if last else (0, 0, 0, tail))
+    w = xp.unfold(ax, block + 2 * r, block)         # [..., nb, (W,) win]
+    t = tmats
+    if tmats.ndim == 3:
+        lead = w.ndim - 2 - (1 if batched_in else 0)
+        t = tmats.reshape((tmats.shape[0],) + (1,) * lead + tuple(tmats.shape[1:]))
+        if not batched_in:
+            w = w.unsqueeze(0)
+    out = torch.matmul(w, t)                         # [..., nb, (W,) B]
+    if last:
+        out = out.reshape(out.shape[:-2] + (nb * block,))
+        return out[..., :n]
+    out = out.transpose(-1, -2)                      # [..., nb, B, W]
+    out = out.reshape(out.shape[:-3] + (nb * block, out.shape[-1]))
+    return out[..., :n, :]
 
 
 def blur(img: torch.Tensor, sigma: float, radius: int | None = None,

@@ -1,4 +1,6 @@
-"""Batched bilinear gradient sampling (twin of `cusift_tpu/ops/sampling.py`).
+"""Batched bilinear sampling (twin of `cusift_tpu/ops/sampling.py`).
+
+`bilinear_sample` samples one channel of a level stack.
 
 `sample_grad_pair` takes kernel K1 (`kernels/sampler.py`) for every method
 but "xla", which selects the plain version (gradient planes + a 4-corner
@@ -16,9 +18,34 @@ import torch
 from ..kernels import sampler as k
 from ..kernels.sampler import bilinear_sample_pair
 
-__all__ = ["bilinear_sample_pair", "sample_grad_pair", "sample_grad_grid"]
+__all__ = ["bilinear_sample", "bilinear_sample_pair", "sample_grad_pair",
+           "sample_grad_grid"]
 
 METHODS = ("auto", "pallas", "fused", "separable", "xla")
+
+
+def bilinear_sample(stack: torch.Tensor, lvl: torch.Tensor,
+                    ys: torch.Tensor, xs: torch.Tensor):
+    """Sample stack [L, H, W] at float (ys, xs) [K, S] on per-item integer
+    levels lvl [K].
+
+    Returns (values [K, S], in_bounds [K, S]).  Points outside the image
+    take the clamped border's value; callers zero them by the mask.
+    """
+    _, h, w = stack.shape
+    inb = (ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1)
+    ys = ys.clamp(0.0, h - 1.000001)
+    xs = xs.clamp(0.0, w - 1.000001)
+    y0 = torch.floor(ys).to(torch.int64)
+    x0 = torch.floor(xs).to(torch.int64)
+    y1 = (y0 + 1).clamp(max=h - 1)
+    x1 = (x0 + 1).clamp(max=w - 1)
+    fy = ys - y0
+    fx = xs - x0
+    li = lvl.to(torch.int64)[:, None]
+    top = stack[li, y0, x0] * (1 - fx) + stack[li, y0, x1] * fx
+    bot = stack[li, y1, x0] * (1 - fx) + stack[li, y1, x1] * fx
+    return top * (1 - fy) + bot * fy, inb
 
 
 def _check_method(method: str) -> None:

@@ -1,12 +1,13 @@
-"""Host-to-device frame pipelining (twin of `pack_frame` and
-`device_frames` in `cusift_tpu/utils/pipeline.py`).
+"""Host-to-device frame pipelining (twin of `pack_frame`, `device_frames`
+and `device_chunks` in `cusift_tpu/utils/pipeline.py`).
 
-Each frame (image + depth) is packed into ONE [2, H, W] float32 array, so
-a frame costs one copy instead of two, and a daemon thread uploads frame
-i+1 while the device works on frame i (a bounded queue of depth 2: double
-buffering).  On a CUDA device the packed frame is staged in pinned host
-memory and copied with `non_blocking=True` on a side stream; the consumer
-makes its own stream wait for that copy before it reads the frame.
+Each frame (image + depth, or left + right image) is packed into ONE
+[2, H, W] float32 array, so a frame costs one copy instead of two, and a
+daemon thread uploads frame i+1 (or chunk i+1 of N frames) while the
+device works on frame i (a bounded queue of depth 2: double buffering).
+On a CUDA device the packed array is staged in pinned host memory and
+copied with `non_blocking=True` on a side stream; the consumer makes its
+own stream wait for that copy before it reads it.
 """
 
 from __future__ import annotations
@@ -76,16 +77,19 @@ def _prefetched(produce, prefetch: int) -> Iterator:
         cancelled.set()
 
 
-def device_frames(frames: Iterable, device, prefetch: int = 2) -> Iterator:
-    """Yield packed [2, H, W] frames on `device`, uploaded ahead of use.
+def _uploaded(items: Iterable, device, prefetch: int) -> Iterator:
+    """Yield (tensor on `device`, tag) for each (host array, tag) of
+    `items`, the arrays built and copied by the feeder thread.
 
-    ``frames``: iterable of (img, depth) numpy pairs (depth may be None).
+    On a CUDA device each array is staged in pinned host memory and copied
+    with `non_blocking=True` on a side stream; the consumer's stream waits
+    for that copy before it reads the tensor.
     """
     device = torch.device(device)
     if device.type != "cuda":
         def produce(emit):
-            for img, depth in frames:
-                emit(torch.from_numpy(pack_frame(img, depth)).to(device))
+            for host, tag in items:
+                emit((torch.from_numpy(host).to(device), tag))
         yield from _prefetched(produce, prefetch)
         return
 
@@ -93,16 +97,47 @@ def device_frames(frames: Iterable, device, prefetch: int = 2) -> Iterator:
 
     def produce_cuda(emit):
         with torch.cuda.stream(copy_stream):
-            for img, depth in frames:
-                host = torch.from_numpy(pack_frame(img, depth)).pin_memory()
-                dev = host.to(device, non_blocking=True)
+            for host, tag in items:
+                pinned = torch.from_numpy(host).pin_memory()
+                dev = pinned.to(device, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(copy_stream)
-                # `host` rides along: the pinned buffer must outlive the copy
-                emit((dev, done, host))
+                # `pinned` rides along: the buffer must outlive the copy
+                emit((dev, tag, done, pinned))
 
-    for dev, done, _host in _prefetched(produce_cuda, prefetch):
+    for dev, tag, done, _pinned in _prefetched(produce_cuda, prefetch):
         torch.cuda.current_stream(device).wait_event(done)
-        # the frame is now used on the consumer's stream
+        # the tensor is now used on the consumer's stream
         dev.record_stream(torch.cuda.current_stream(device))
+        yield dev, tag
+
+
+def device_frames(frames: Iterable, device, prefetch: int = 2) -> Iterator:
+    """Yield packed [2, H, W] frames on `device`, uploaded ahead of use.
+
+    ``frames``: iterable of (img, depth) numpy pairs (depth may be None).
+    """
+    packed = ((pack_frame(img, depth), None) for img, depth in frames)
+    for dev, _ in _uploaded(packed, device, prefetch):
         yield dev
+
+
+def device_chunks(frames: Iterable, chunk: int, device, prefetch: int = 2) -> Iterator:
+    """Yield (chunk [chunk, 2, H, W] on `device`, n_valid), uploaded ahead
+    of use: `chunk` packed frames a copy.
+
+    The last chunk is padded by repeating its last frame, so that every
+    chunk has the same shape; n_valid counts its real frames.
+    """
+    def chunks():
+        buf = []
+        for img, aux in frames:
+            buf.append(pack_frame(img, aux))
+            if len(buf) == chunk:
+                yield np.stack(buf), chunk
+                buf = []
+        if buf:
+            n = len(buf)
+            yield np.stack(buf + [buf[-1]] * (chunk - n)), n
+
+    return _uploaded(chunks(), device, prefetch)

@@ -17,7 +17,10 @@ samples in another order, atan2f against torch's atan2), and their reruns
 bit-identical.  The RGB-D paths on the card: `align_rgbd_pair` within
 0.01 (R) and 0.01 m (t) of ground truth, and a short `Slam` run whose
 fused and split events agree within 1e-3 and whose deferred and eager
-events agree bit for bit.
+events agree bit for bit.  Chunked tracking: a chunk step's rows equal the
+sequential steps' bit for bit; `device_chunks` delivers `device_frames`'
+tensors.  Stereo: `_extract_stereo_points` on the card against the CPU,
+admissible counts within 1%, depths within 1e-4 relative.
 """
 
 import numpy as np
@@ -626,3 +629,78 @@ def test_slam_deferred_events_match_eager_on_the_card(dev):
     assert [r["loop"] for r in sd.metrics] == [r["loop"] for r in se.metrics]
     for a, b in zip(sd.trajectory(), se.trajectory()):
         np.testing.assert_array_equal(a, b)
+
+
+def test_chunk_rows_equal_frame_steps_on_the_card(dev):
+    """A chunk step of 4 frames (240x320) on the card: its packed rows and
+    points equal 4 sequential `_frame_step` calls with the same generator
+    seeds, bit for bit (one extract_batch over the chunk equals extract of
+    each frame)."""
+    from cusift_tpu_torch import SlamConfig
+    from cusift_tpu_torch.data.synthetic import planar_rgbd_sequence
+    from cusift_tpu_torch.models.slam import Slam, _chunk_step, _frame_step
+
+    seq = planar_rgbd_sequence(6, 240, 320, motion_scale=0.5, seed=4)
+    cfg = SiftConfig(max_kpts=384, max_kpts_per_octave=192, num_octaves=3)
+    slam = Slam(seq.intr, sift_cfg=cfg, slam_cfg=SlamConfig(max_keyframes=8), device=dev)
+    slam.process_frame(seq.images[0], seq.depths[0])
+    _, kd, kv, kp = slam._ref_cache
+    chunk = torch.from_numpy(np.stack([np.stack([seq.images[i], seq.depths[i]])
+                                       for i in range(1, 5)])).to(dev)
+    before = (k1.launches, k2.launches)
+    _, pts, rows = _chunk_step(chunk, slam.intr, kd, kv, kp, cfg, slam.match_cfg,
+                               slam.ransac_cfg, slam._next_keys(4))
+    assert k1.launches - before[0] == 4 * 2 * cfg.num_octaves_for(240, 320)
+    assert k2.launches - before[1] == 4
+    slam._key_ctr -= 4
+    for i in range(4):
+        _, p, row = _frame_step(chunk[i, 0], chunk[i, 1], slam.intr, kd, kv, kp, cfg,
+                                slam.match_cfg, slam.ransac_cfg, slam._next_key())
+        assert torch.equal(row, rows[i]), (i, (row - rows[i]).abs().max().item())
+        assert torch.equal(p, pts[i])
+    assert bool((rows[:, 1] == 1).all())
+
+
+def test_extract_stereo_points_card_matches_cpu(dev):
+    """`_extract_stereo_points` of one 240x320 pair on the card against the
+    CPU run of the same pair: admissible counts within 1%, and where the
+    same feature (position within 1e-3 px) is admissible on both, depths
+    within 1e-4 relative."""
+    from cusift_tpu_torch import MatchConfig
+    from cusift_tpu_torch.data.synthetic import two_plane_stereo_sequence
+    from cusift_tpu_torch.models.stereo import _extract_stereo_points
+
+    seq = two_plane_stereo_sequence(1, 240, 320, seed=4, motion_scale=0.7, amplitude=2.0)
+    cfg = SiftConfig(max_kpts=384, max_kpts_per_octave=256, num_octaves=3)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        args = [torch.from_numpy(a).to(d) for a in (seq.images_l[0], seq.images_r[0], seq.intr)]
+        f, pts, ok = _extract_stereo_points(*args, torch.tensor(np.float32(seq.baseline),
+                                                                device=d), cfg, MatchConfig())
+        out[d.type] = (torch.stack([f.x, f.y], -1).cpu(), pts[:, 2].cpu(), ok.cpu())
+    (xy_c, z_c, ok_c), (xy_g, z_g, ok_g) = out["cpu"], out["cuda"]
+    n_c, n_g = int(ok_c.sum()), int(ok_g.sum())
+    assert n_c >= 60 and abs(n_g - n_c) <= max(1, 0.01 * n_c), (n_c, n_g)
+    d = torch.cdist(xy_c[ok_c].double(), xy_g[ok_g].double())
+    near, j = d.min(1)
+    same = near < 1e-3
+    assert same.float().mean().item() >= 0.99
+    zc, zg = z_c[ok_c][same], z_g[ok_g][j[same]]
+    assert ((zc - zg).abs() / zc).max().item() < 1e-4
+
+
+def test_device_chunks_match_device_frames_on_the_card(dev):
+    """device_chunks on the card delivers the tensors device_frames does,
+    chunk by chunk, the last chunk padded with its last frame."""
+    from cusift_tpu_torch.utils.pipeline import device_chunks, device_frames
+
+    rng = np.random.default_rng(3)
+    frames = [(rng.random((48, 64), dtype=np.float32), rng.random((48, 64), dtype=np.float32))
+              for _ in range(7)]
+    singles = [f.clone() for f in device_frames(iter(frames), dev)]
+    chunks = [(c.clone(), n) for c, n in device_chunks(iter(frames), 3, dev)]
+    assert [n for _, n in chunks] == [3, 3, 1]
+    for k, (c, _) in enumerate(chunks):
+        assert c.device.type == "cuda" and c.shape == (3, 2, 48, 64)
+        for i in range(3):
+            assert torch.equal(c[i], singles[min(3 * k + i, 6)])

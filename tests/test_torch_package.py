@@ -2,9 +2,12 @@
 
 * The port imports neither jax, cv2 nor any module of the JAX package
   `cusift_tpu` (checked in a fresh interpreter that runs a tiny CPU
-  match_pair, RGB-D pair alignment and SLAM run, and in one that imports
+  match_pair, RGB-D pair alignment, SLAM run (sequential and chunked),
+  chunked stereo SLAM run and direct pyramid, and in one that imports
   `chip_smoke` and every module of the port): the machine with the GPU has
   neither jax nor cv2.
+* `utils/timers.py:Timer` takes one sample a call, and a result on the
+  CPU waits for no CUDA device.
 * On CPU tensors the kernel wrappers take their plain versions and launch
   nothing; on a device with no kernel they raise.  The opt-in samplers
   ("fused", "separable") take the plain versions of K4-K6, which compute
@@ -70,6 +73,19 @@ slam = Slam(seq.intr, cfg, slam_cfg=SlamConfig(max_keyframes=4, kf_max_translati
             device="cpu")
 slam.run(zip(seq.images, seq.depths))
 assert len(slam.trajectory()[0]) == 3
+slam = Slam(seq.intr, cfg, slam_cfg=SlamConfig(max_keyframes=4), device="cpu")
+slam.run(zip(seq.images, seq.depths), chunk=2)
+assert len(slam.metrics) == 3
+from cusift_tpu_torch.data.synthetic import two_plane_stereo_sequence
+from cusift_tpu_torch.models.stereo import StereoSlam
+from cusift_tpu_torch.ops.pyramid import build_pyramid
+st = two_plane_stereo_sequence(3, 96, 128, seed=2, motion_scale=0.3)
+stereo = StereoSlam(st.intr, st.baseline, sift_cfg=cfg,
+                    slam_cfg=SlamConfig(max_keyframes=4), device="cpu")
+stereo.run(zip(st.images_l, st.images_r), chunk=2)
+assert len(stereo.trajectory()[0]) == 3
+from dataclasses import replace
+assert len(build_pyramid(torch.from_numpy(a), replace(cfg, pyramid_impl="direct"))) == 2
 """ + _CHECK
 
 # chip_smoke.py imports the port inside its phases: import it, every
@@ -87,7 +103,7 @@ names = {m.name for m in pkgutil.walk_packages(cusift_tpu_torch.__path__, "cusif
 for mod in ("config", "optim.lie", "optim.robust", "optim.ba", "optim.posegraph",
             "ops.geometry", "ops.mat3", "ops.ransac", "models.twoview", "data.synthetic",
             "data.evaluation", "models.local_ba", "models.evict", "utils.pipeline",
-            "models.slam"):
+            "models.slam", "ops.stereo", "models.stereo", "utils.timers"):
     assert "cusift_tpu_torch." + mod in names, mod
 """ + _CHECK
 
@@ -214,3 +230,17 @@ def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def test_timer_samples_without_waiting_on_the_cpu(monkeypatch):
+    from cusift_tpu_torch.utils import timers
+
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: synced.append(dev))
+    t = timers.Timer("x")
+    assert np.isnan(t.best) and np.isnan(t.mean)
+    out = t.time(lambda a: {"v": [a * 2]}, torch.ones(3))
+    assert torch.equal(out["v"][0], torch.full((3,), 2.0))
+    with t(out):
+        pass
+    assert len(t.samples) == 2 and t.best <= t.mean and not synced

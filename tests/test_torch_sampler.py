@@ -6,6 +6,8 @@ the JAX Pallas kernel run in interpret mode with f32 dots
 the JAX XLA path (`bilinear_sample_pair` over `image_gradients`), at
 atol 1e-5 on in-image samples: float32, same formula.  These are twins of
 tests/test_pallas_sampler.py; K4-K6 are in test_torch_sampler_fused.py.
+The single-channel `bilinear_sample` is held to the JAX one at 1e-5, in
+and out of bounds.
 """
 
 import jax.numpy as jnp
@@ -158,3 +160,20 @@ def test_grid_and_method_dispatch(rng):
     with pytest.raises(ValueError, match="unknown sampler"):
         tsampling.sample_grad_pair(gauss, lvl, ys, xs, method="mxu")
 
+
+
+def test_bilinear_sample_matches_jax(rng):
+    """The single-channel sampler against the JAX one at ATOL, with points
+    inside, on the borders and outside (clamped values, the same mask)."""
+    from cusift_tpu.ops.sampling import bilinear_sample as jax_bilinear
+
+    gauss, lvl, ys, xs = _setup(rng, L=3, H=40, W=56, N=24, S=36, spread=30.0)
+    ys[0, :6] = 0.0
+    xs[1, :6] = 55.0
+    ys[2, :6] = 39.0
+    rv, rinb = jax_bilinear(*(jnp.asarray(a) for a in (gauss, lvl, ys, xs)))
+    v, inb = tsampling.bilinear_sample(*(torch.from_numpy(a) for a in (gauss, lvl, ys, xs)))
+    rinb = np.asarray(rinb)
+    assert 0.2 < rinb.mean() < 0.9
+    np.testing.assert_array_equal(inb.numpy(), rinb)
+    np.testing.assert_allclose(v.numpy(), np.asarray(rv), atol=ATOL, rtol=0)

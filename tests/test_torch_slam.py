@@ -11,8 +11,8 @@ bounds of tests/test_slam.py, and its parts against the JAX package.
   exact to 1e-6, checkpoint/resume, blackout recovery, and tracking that
   continues once eviction fires.
 * The package's rules: numpy frames go to the GPU unless device="cpu" is
-  passed (without a GPU that is an error), and the two options that wait
-  for later work raise NotImplementedError.
+  passed (without a GPU that is an error), and the option that waits for
+  later work (dist_ba=True) raises NotImplementedError.
 """
 
 import jax.numpy as jnp
@@ -260,9 +260,6 @@ def test_numpy_frames_without_gpu_raise(monkeypatch, seq):
 def test_unported_options_raise(seq):
     with pytest.raises(NotImplementedError, match="dist_ba"):
         Slam(seq.intr, sift_cfg=SIFT, dist_ba=True, device="cpu")
-    slam = Slam(seq.intr, sift_cfg=SIFT, device="cpu")
-    with pytest.raises(NotImplementedError, match="chunk"):
-        slam.run(zip(seq.images, seq.depths), chunk=3)
 
 
 def test_anchor_knob_threads_to_window_ba(monkeypatch):

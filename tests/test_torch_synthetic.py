@@ -10,7 +10,17 @@ package.
   px, the twin does not).
 * `ba_problem` and `pose_ring`: the same draws, so every integer array is
   equal and every float array agrees to float32 rounding of the poses.
-* The evaluation copy gives the reference's ATE and RPE to 1e-9.
+* `two_plane_sequence` and `two_plane_stereo_sequence`: rotations to 2e-7;
+  translations to 16 float32 ulps of max(1 m, the largest) (2^-19
+  relative): the reference's float32 `se3_exp` loses digits in its
+  (th - sin th) / th^3 term on these paths (7.4e-7 on the forward path at
+  0.5 m, 1.3e-6 on the loop at 4 m), where the twin evaluates it in
+  float64; depths to float32 rounding (relative 3e-7, 1e-6 on the loop
+  scene, where those pose differences move the plane intersections);
+  images within 1e-3 (the twin samples at exact coordinates, cv2 at 1/32
+  px), on every pixel: no pixel changes plane between the two packages.
+* The evaluation copy gives the reference's ATE, RPE, path length and
+  KITTI drift to 1e-9.
 """
 
 import jax.numpy as jnp
@@ -24,6 +34,16 @@ from cusift_tpu.optim.lie import se3_exp as j_se3_exp
 from cusift_tpu_torch.data import evaluation as tev
 from cusift_tpu_torch.data import synthetic as tsyn
 from cusift_tpu_torch.utils.pipeline import device_frames, pack_frame
+
+# the stereo tests' scene (tests/test_stereo.py:26-28) at 5 frames and half
+# size, and the stereo soak's loop (tests/test_stereo.py:105-107) with the
+# north-star texture's knobs (scripts/tpu_stereo_longrun.py:89-91)
+STEREO_SCENES = {
+    "sweep": (dict(n_frames=5, h=120, w=160, seed=4, motion_scale=0.7, amplitude=2.0,
+                   baseline=0.12), 3e-7),
+    "loop": (dict(n_frames=6, h=96, w=128, seed=3, motion_scale=0.9, path="loop",
+                  amplitude=6.0, blobs=100, detail_octaves=3), 1e-6),
+}
 
 torch.set_num_threads(2)
 
@@ -68,6 +88,46 @@ def test_planar_rgbd_detail_bands_change_only_the_texture():
     assert np.abs(dense.images - base.images).max() > 0.05
 
 
+def _check_poses(got, ref):
+    np.testing.assert_allclose(got.poses_r, ref.poses_r, atol=2e-7, rtol=0)
+    scale = max(1.0, float(np.abs(ref.poses_t).max()))
+    np.testing.assert_allclose(got.poses_t, ref.poses_t, atol=2.0 ** -19 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("scene", sorted(STEREO_SCENES))
+def test_two_plane_stereo_sequence_matches_jax(scene):
+    kw, d_rtol = STEREO_SCENES[scene]
+    got = tsyn.two_plane_stereo_sequence(**kw)
+    ref = jsyn.two_plane_stereo_sequence(**kw)
+    _check_poses(got, ref)
+    np.testing.assert_array_equal(got.depths > 0, ref.depths > 0)
+    np.testing.assert_allclose(got.depths, ref.depths, rtol=d_rtol, atol=0)
+    for name in ("images_l", "images_r"):
+        np.testing.assert_allclose(getattr(got, name), getattr(ref, name), atol=1e-3,
+                                   rtol=0, err_msg=name)
+    np.testing.assert_array_equal(got.intr, ref.intr)
+    assert got.baseline == ref.baseline
+    np.testing.assert_array_equal(got.timestamps, ref.timestamps)
+
+
+@pytest.mark.parametrize("kw", [dict(n_frames=4, h=96, w=128, seed=2),
+                                dict(n_frames=4, h=96, w=128, seed=1, path="forward",
+                                     blur_frames=(2,), amplitude=0.5),
+                                dict(n_frames=5, h=80, w=96, seed=3, path="loop",
+                                     near=2.0, far=5.0)])
+def test_two_plane_sequence_matches_jax(kw):
+    """Each path, a blurred frame (cv2.GaussianBlur's kernel rule) and
+    other plane depths."""
+    got = tsyn.two_plane_sequence(**kw)
+    ref = jsyn.two_plane_sequence(**kw)
+    _check_poses(got, ref)
+    np.testing.assert_array_equal(got.depths > 0, ref.depths > 0)
+    np.testing.assert_allclose(got.depths, ref.depths, rtol=3e-7, atol=0)
+    np.testing.assert_allclose(got.images, ref.images, atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(got.intr, ref.intr)
+    np.testing.assert_array_equal(got.timestamps, ref.timestamps)
+
+
 def test_ba_problem_and_pose_ring_match_jax():
     prob, truth = tsyn.ba_problem(seed=3, n_cams=6, n_pts=60, pixel_noise=0.25)
     rprob, rtruth = jsyn.ba_problem(seed=3, n_cams=6, n_pts=60, pixel_noise=0.25)
@@ -97,6 +157,28 @@ def test_evaluation_copy_matches_reference():
     np.testing.assert_allclose(tev.rpe(est_r, est_t, gt_r, gt_t, 2),
                                jev.rpe(est_r, est_t, gt_r, gt_t, 2), atol=1e-9)
     np.testing.assert_allclose(tev.camera_centers(gt_r, gt_t), jev.camera_centers(gt_r, gt_t))
+
+
+def test_path_length_and_kitti_drift_match_reference():
+    """On a drifting estimate of the loop scene's trajectory, at the
+    stereo soak's lengths (tests/test_stereo.py:120-121) and at lengths
+    no subsequence reaches (NaN in both)."""
+    rng = np.random.default_rng(11)
+    kw = STEREO_SCENES["loop"][0]
+    gt_r, gt_t = zip(*(tsyn._two_plane_pose(f, 40, "loop", 0.9, 6.0) for f in range(40)))
+    gt_r, gt_t = np.stack(gt_r), np.stack(gt_t)
+    est_r = np.stack([tsyn.se3_exp(x)[0] @ r for x, r in
+                      zip(rng.normal(scale=0.01, size=(40, 6)), gt_r)])
+    est_t = gt_t + np.cumsum(rng.normal(scale=0.01, size=gt_t.shape), 0).astype(np.float32)
+    length = tev.trajectory_path_length(gt_r, gt_t)
+    np.testing.assert_allclose(length, jev.trajectory_path_length(gt_r, gt_t), atol=1e-9)
+    assert length[-1] > 1.0 and kw["path"] == "loop"
+    for lengths, step in (((0.25 * length[-1], 0.5 * length[-1]), 2), ((1e3,), 10)):
+        got = tev.kitti_drift(est_r, est_t, gt_r, gt_t, lengths=lengths, step=step)
+        ref = jev.kitti_drift(est_r, est_t, gt_r, gt_t, lengths=lengths, step=step)
+        np.testing.assert_allclose(got, ref, atol=1e-9)
+    assert np.isfinite(got).sum() == 0 and np.isfinite(
+        tev.kitti_drift(est_r, est_t, gt_r, gt_t, lengths=(0.3 * length[-1],), step=2)).all()
 
 
 def test_device_frames_yields_packed_frames_in_order():
