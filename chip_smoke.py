@@ -80,7 +80,24 @@ Phases (one line each; any failure raises and exits non-zero):
      untimed warm-up: >= 145 frames tracked, metric ATE (no alignment)
      < 0.04 of the path, KITTI drift < 15%; frames/s with window BA,
      keypoints a frame, keyframes, closures, evictions, ms per event, K1
-     and K2 launches a frame and peak device memory.
+     and K2 launches a frame and peak device memory;
+ 19. a mono pair at full width: the stereo scene's left frames 0->1->2
+     through `pair_step` (R error < 0.02, >= 60 inliers, K1 10 and K2 1
+     a pair; t's angle to the truth printed), `find_pnp` on pair 2's
+     chain-scaled points (R < 0.02, t within 20% of the chain-scaled
+     truth), 10 timed pair steps, and the Sim(3) graph on
+     tests/test_sim3.py's drift loop at that file's three bars, timed;
+ 20. mono VO: `MonoVO.run` over the scene's 150 left images with the
+     reference soak's VOConfig and ba_window 4, after an untimed warm-up:
+     >= 90% of pairs tracked, >= 20 keyframes, >= 1 closure, Sim(3)-aligned
+     ATE < 15% of the path (the scene's 300 frames are rendered and run if
+     no closure fires in 150); frames/s, ms a frame, a keyframe event, a
+     Sim(3) solve and a window BA, KITTI drift, the gate log;
+ 21. SfM: `reconstruct_rgbd` as `cli.py sfm` calls it and
+     `reconstruct_mono`, each on 10 frames at 480x640 with 2048 keypoints,
+     at tests/test_sfm.py's bars (the mono structure printed, not held);
+ 22. K1 and K2 at the VO path's inputs (a frame's 10 K1 calls, K2's first
+     pair-step and loop-verification calls), as phase 15.
 The line before the last is a JSON object with each kernel's launches on
 its path, its error against the plain version, its times and its bound;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device it
@@ -1369,16 +1386,17 @@ def stereo_slam_path(dev, seq) -> dict:
     return runs
 
 
-def check_sampler_slam(dev, calls) -> dict:
-    """K1 at the inputs one frame's extraction on the SLAM path gave it
-    (480x640 levels, no upscale, 1024 slots an octave; orientation and
-    descriptor geometry in each octave): each call against its plain
-    version and the grid_sample yardstick, timed, and summed per frame."""
+def check_sampler_slam(dev, calls, path: str = "slam") -> dict:
+    """K1 at the inputs one frame's extraction on the SLAM path (or the
+    VO path, `path="vo"`) gave it (480x640 levels, no upscale, 1024 slots
+    an octave; orientation and descriptor geometry in each octave): each
+    call against its plain version and the grid_sample yardstick, timed,
+    and summed per frame."""
     from cusift_tpu_torch.kernels import sampler as k1
 
     cases = []
     for i, (gauss, lvl, ys, xs) in enumerate(calls):
-        tag = f"k1 slam {i}"
+        tag = f"k1 {path} {i}"
         case = _k1_case(tag, k1, gauss, lvl, ys, xs)
         ms = time_ms(lambda: k1.sample_grad_patches(gauss, lvl, ys, xs), tag)
         plain_ms = time_ms(lambda: k1.sample_grad_patches_plain(gauss, lvl, ys, xs),
@@ -1388,13 +1406,13 @@ def check_sampler_slam(dev, calls) -> dict:
         b = case["bound"]
         cases.append(dict(shape=[l, h, w, n, smp], max_abs_err=case["max_abs_err"], ms=ms,
                           plain_ms=plain_ms, library_ms=lib["library_ms"], **b))
-        log("k1", path="slam", call=i, shape=f"L{l}x{h}x{w},N{n},S{smp}",
+        log("k1", path=path, call=i, shape=f"L{l}x{h}x{w},N{n},S{smp}",
             inb_frac=f"{case['plain'][2].float().mean():.4f}", max_abs_err=case["max_abs_err"],
             ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib['library_ms']:.4f}",
             bound_ms=f"{b['bound_ms']:.4f}", pct_of_bound=f"{100 * b['bound_ms'] / ms:.1f}")
     frame = {key: sum(c[key] for c in cases)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log("k1", path="slam", calls_per_frame=len(cases), frame_ms_sum=f"{frame['ms']:.4f}",
+    log("k1", path=path, calls_per_frame=len(cases), frame_ms_sum=f"{frame['ms']:.4f}",
         frame_plain_ms_sum=f"{frame['plain_ms']:.4f}",
         frame_library_ms_sum=f"{frame['library_ms']:.4f}",
         frame_bound_ms_sum=f"{frame['bound_ms']:.4f}", card=json.dumps(smi_line()))
@@ -1412,6 +1430,387 @@ def check_matcher_slam(dev, calls) -> dict:
         err = _k2_case(f"slam {kind}", ta, tb, tv)
         out[kind] = dict(max_abs_err=err, valid_b=int(tv.sum()),
                          **_k2_timed(f"k2 slam {kind}", ta, tb, tv))
+    return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), **out)
+
+
+
+# ---------- phases 19-22: monocular VO and SfM (BASELINE configs[4], [2]) ----------
+
+def _ang_deg(a, b) -> float:
+    return float(np.degrees(np.arccos(np.clip(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)),
+                                              -1.0, 1.0))))
+
+
+def _rel_gt(seq_r, seq_t, a, b):
+    """Ground-truth motion x_b = R x_a + t between frames a and b."""
+    r = seq_r[b] @ seq_r[a].T
+    return r, seq_t[b] - r @ seq_t[a]
+
+
+def sim3_drift_graph():
+    """tests/test_sim3.py's constructed scale-drift loop (16 nodes, step
+    translations scaled by e^(0.03 k), one loop edge measuring the epoch
+    scale), built with the port's se3_exp: (gt_r, gt_t, graph arrays)."""
+    from cusift_tpu_torch.optim.lie import se3_exp
+
+    n, gamma = 16, 0.03
+    gt_r, gt_t = [np.eye(3)], [np.zeros(3)]
+    for k in range(1, n):
+        s = k / (n - 1)
+        xi = torch.tensor([0.6 * np.sin(2 * np.pi * s), 0.1 * np.sin(4 * np.pi * s),
+                           0.5 * np.sin(2 * np.pi * s + 1.1), 0.05 * np.sin(2 * np.pi * s),
+                           0.30 * np.sin(2 * np.pi * s), 0.05 * np.sin(4 * np.pi * s)],
+                          dtype=torch.float64)
+        r, t = se3_exp(xi)
+        gt_r.append(r.numpy())
+        gt_t.append(t.numpy())
+    gt_r, gt_t = np.stack(gt_r), np.stack(gt_t)
+    ei, ej, mr, mt, ms = [], [], [], [], []
+    est_r, est_t = [gt_r[0]], [gt_t[0]]
+    for k in range(n - 1):
+        r_rel, t_rel = _rel_gt(gt_r, gt_t, k + 1, k)
+        d = np.exp(gamma * k)
+        ei.append(k), ej.append(k + 1), mr.append(r_rel), mt.append(t_rel * d), ms.append(1.0)
+        est_r.append(r_rel.T @ est_r[-1])
+        est_t.append(r_rel.T @ (est_t[-1] - t_rel * d))
+    r_rel, t_rel = _rel_gt(gt_r, gt_t, n - 1, 0)
+    ei.append(0), ej.append(n - 1), mr.append(r_rel), mt.append(t_rel)
+    ms.append(np.exp(-gamma * (n - 2)))
+    f32 = np.float32
+    return gt_r, gt_t, dict(
+        poses_r=np.stack(est_r).astype(f32), poses_t=np.stack(est_t).astype(f32),
+        poses_s=np.ones(n, f32), edge_i=np.array(ei, np.int64), edge_j=np.array(ej, np.int64),
+        meas_r=np.stack(mr).astype(f32), meas_t=np.stack(mt).astype(f32),
+        meas_s=np.array(ms, f32), weight=np.ones(len(ei), f32))
+
+
+def _centres(r, t):
+    return -np.einsum("nji,nj->ni", r, t)
+
+
+def check_sim3(dev) -> dict:
+    """The Sim(3) LM on the card on the drift loop, held to
+    tests/test_sim3.py's three bars, and timed (5 solves after a warm-up)."""
+    from cusift_tpu_torch import PoseGraphConfig
+    from cusift_tpu_torch.optim.sim3graph import Sim3Graph, optimize
+
+    gt_r, gt_t, a = sim3_drift_graph()
+    g = Sim3Graph(**{k: torch.from_numpy(v).to(dev) for k, v in a.items()})
+    cfg = PoseGraphConfig(max_iters=30, cg_iters=60)
+    res = optimize(g, cfg)
+    s = res.poses_s.cpu().numpy()
+    err0 = np.linalg.norm(_centres(a["poses_r"], a["poses_t"]) - _centres(gt_r, gt_t), axis=1)
+    err1 = np.linalg.norm(_centres(res.poses_r.cpu().numpy(), res.poses_t.cpu().numpy() / s[:, None])
+                          - _centres(gt_r, gt_t), axis=1)
+    spread = float(np.std(np.log(s / np.exp(0.03 * np.arange(16)))[1:]))
+    c, c0 = float(res.cost), float(res.initial_cost)
+    if not (c < 0.05 * c0 and err1.max() < 0.25 * err0.max() and spread < 0.15):
+        raise AssertionError(f"sim3 on the card: cost {c} of {c0}, centre error {err1.max()} "
+                             f"vs {err0.max()}, scale spread {spread}")
+    times = wall_ms(lambda: optimize(g, cfg).cost.item(), 5, warmup=1)
+    log("mono_pair", sim3_cost=f"{c:.6g}", sim3_initial_cost=f"{c0:.6g}",
+        sim3_centre_err=f"{err1.max():.5f}", sim3_raw_centre_err=f"{err0.max():.5f}",
+        sim3_scale_spread=f"{spread:.5f}", sim3_ms=_spread(times), sim3_iters=cfg.max_iters,
+        sim3_cg_iters=cfg.cg_iters, card=json.dumps(smi_line()))
+    return dict(cost=c, initial_cost=c0, ms=statistics.median(times))
+
+
+MONO_PAIR_R_ERR = 0.02       # max |R - R_gt| of a pair (tests/test_odometry.py:50)
+MONO_PAIR_MIN_INLIERS = 60   # tests/test_odometry.py:46
+MONO_PNP_T_REL = 0.2         # PnP t against the chain-scaled ground truth, relative
+
+
+def mono_pair(dev, seq, timed_runs=10) -> dict:
+    """Phase 19: frames 0->1 and 1->2 of the VO scene through `pair_step`
+    (K1 10, K2 1 a pair), `find_pnp` on the second pair's chain-scaled
+    points, and the Sim(3) graph on the card."""
+    from cusift_tpu_torch import MatchConfig, RansacConfig, SiftConfig
+    from cusift_tpu_torch.models.odometry import _pair_core, pair_step
+    from cusift_tpu_torch.ops.ransac import step_generators
+    from cusift_tpu_torch.models.sift import extract
+    from cusift_tpu_torch.ops.pnp import find_pnp
+
+    cfg, mcfg, rcfg = SiftConfig(**STEREO_SIFT), MatchConfig(), RansacConfig()
+    imgs = [torch.from_numpy(seq.images_l[i]).to(dev) for i in range(3)]
+    intr = torch.from_numpy(seq.intr).to(dev)
+    fa = extract(imgs[0], cfg)
+    depth, scale = torch.zeros(cfg.total_kpts, device=dev), torch.ones((), device=dev)
+    out, rows = [], []
+    for i in (1, 2):
+        reset_counts()
+        res, row = pair_step(fa.desc, fa.valid, torch.stack([fa.x, fa.y], -1), depth, imgs[i],
+                             intr, scale, cfg, mcfg, rcfg, step_generators(dev, 0, i, 2))
+        launches = read_counts()
+        out.append((res, row, launches, (fa, depth, scale)))
+        fa, depth, scale = res.feats, res.depth, res.scale
+    n_k1 = 2 * cfg.num_octaves_for(*seq.images_l.shape[-2:])
+    r_err, t_deg = [], []
+    for i, (res, row, launches, _) in enumerate(out):
+        r_gt, t_gt = _rel_gt(seq.poses_r, seq.poses_t, i, i + 1)
+        r_err.append(float(np.abs(row[:9].reshape(3, 3) - r_gt).max()))
+        t_deg.append(_ang_deg(row[9:12], t_gt))
+        if (row[15] < 0.5 or row[13] < MONO_PAIR_MIN_INLIERS or r_err[-1] > MONO_PAIR_R_ERR
+                or launches["sampler"] != n_k1 or launches["matcher"] != 1):
+            raise AssertionError(f"mono pair {i}->{i + 1}: row {row.tolist()}, R error "
+                                 f"{r_err[-1]}, t {t_deg[-1]} deg, launches {launches}")
+    if out[1][1][14] < 8:
+        raise AssertionError(f"mono pair 1->2: {out[1][1][14]} tracked points for the scale")
+    # PnP on the second pair's chain-scaled points (|t01| = 1 units)
+    fa, depth, scale = out[1][3]
+    _, rescue = _pair_core(fa.desc, fa.valid, torch.stack([fa.x, fa.y], -1), depth, imgs[2],
+                           intr, scale, cfg, mcfg, rcfg, step_generators(dev, 0, 2, 1)[0])
+    p = find_pnp(rescue.pts_a3, rescue.xb, rescue.have3d, rcfg,
+                 torch.Generator(device=dev).manual_seed(7))
+    _, t01 = _rel_gt(seq.poses_r, seq.poses_t, 0, 1)
+    r12, t12 = _rel_gt(seq.poses_r, seq.poses_t, 1, 2)
+    t_exp = t12 / np.linalg.norm(t01)
+    pr, pt = p.r.cpu().numpy(), p.t.cpu().numpy()
+    pnp_r_err = float(np.abs(pr - r12).max())
+    pnp_t_rel = float(np.linalg.norm(pt - t_exp) / np.linalg.norm(t_exp))
+    if not (bool(p.ok) and pnp_r_err < MONO_PAIR_R_ERR and pnp_t_rel < MONO_PNP_T_REL):
+        raise AssertionError(f"mono pair PnP: ok {bool(p.ok)}, R error {pnp_r_err}, "
+                             f"t relative error {pnp_t_rel}")
+    fa, depth, scale = out[1][3]
+    args = (fa.desc, fa.valid, torch.stack([fa.x, fa.y], -1), depth, imgs[2], intr, scale,
+            cfg, mcfg, rcfg)
+    times = wall_ms(lambda: pair_step(*args, step_generators(dev, 0, 2, 2)), timed_runs)
+    sim3 = check_sim3(dev)
+    log("mono_pair", image="x".join(map(str, seq.images_l.shape[-2:])),
+        r_err=",".join(f"{e:.5f}" for e in r_err), t_deg=",".join(f"{d:.3f}" for d in t_deg),
+        inliers=",".join(str(int(o[1][13])) for o in out),
+        scale_common_pair2=int(out[1][1][14]), scale_pair2=f"{out[1][1][12]:.5f}",
+        kpts=int(out[1][0].feats.valid.sum()), pnp_inliers=int(p.num_inliers),
+        pnp_r_err=f"{pnp_r_err:.5f}", pnp_t_rel_err=f"{pnp_t_rel:.5f}",
+        pnp_t_deg=f"{_ang_deg(pt, t12):.3f}",
+        pair_ms=_spread(times), launches=json.dumps(out[1][2]), card=json.dumps(smi_line()))
+    return dict(launches=out[1][2], ms=statistics.median(times), sim3=sim3)
+
+
+VO_CFG = dict(max_keyframes=96, kf_every=4, loop_temporal_gap=30, loop_min_inliers=25,
+              loop_min_score=0.05, loop_min_common=8)     # tests/test_vo_sequence.py:45-51
+VO_MIN_TRACKED = 0.9
+VO_MIN_KF = 20
+VO_ATE_OF_PATH = 0.15
+VO_WARMUP_FRAMES = 16
+
+
+def _vo_timers(vo) -> dict:
+    """Host ms of a MonoVO's keyframe events (`_maybe_keyframe` calls that
+    inserted one), Sim(3) solves and window BAs, with the events' K1/K2
+    launches, by wrapping the instance's methods (the code is unchanged)."""
+    from cusift_tpu_torch.kernels import matcher, sampler
+
+    st = dict(event_ms=[], event_k1=0, event_k2=0, sim3_ms=[], ba_ms=[], frame_end=[])
+
+    def wrap(name, key):
+        fn = getattr(vo, name)
+
+        def timed(*a):
+            n0, k1_0, k2_0 = vo.n_kf_total, sampler.launches, matcher.launches
+            t0 = time.perf_counter()
+            r = fn(*a)
+            ms = (time.perf_counter() - t0) * 1e3
+            if key != "event_ms" or vo.n_kf_total > n0:
+                st[key].append(ms)
+            if key == "event_ms" and vo.n_kf_total > n0:
+                st["event_k1"] += sampler.launches - k1_0
+                st["event_k2"] += matcher.launches - k2_0
+            return r
+        setattr(vo, name, timed)
+
+    wrap("_maybe_keyframe", "event_ms")
+    wrap("_optimize_graph", "sim3_ms")
+    wrap("_window_ba", "ba_ms")
+    vo.on_metric = lambda stat: st["frame_end"].append(time.perf_counter())
+    return st
+
+
+def mono_vo_run(dev, seq, n_frames: int) -> dict:
+    """MonoVO.run over the scene's first n_frames left images, after an
+    untimed warm-up on its own instance; returns the run's record."""
+    from cusift_tpu_torch import SiftConfig, VOConfig
+    from cusift_tpu_torch.data.evaluation import (ate_rmse, camera_centers, horn_align,
+                                                  kitti_drift, trajectory_path_length)
+    from cusift_tpu_torch.kernels import matcher, sampler
+    from cusift_tpu_torch.models.odometry import MonoVO
+
+    cfg = SiftConfig(**STEREO_SIFT)
+
+    def build():
+        return MonoVO(seq.intr, sift_cfg=cfg, vo_cfg=VOConfig(**VO_CFG), ba_window=4, device=dev)
+
+    frames = seq.images_l[:n_frames]
+    n_k1 = 2 * cfg.num_octaves_for(*frames.shape[-2:])
+    t0 = time.perf_counter()
+    warm = build()
+    reset_counts()
+    with first_calls(sampler, "sample_grad_patches",
+                     lambda: sampler.launches if n_k1 <= sampler.launches < 2 * n_k1 else None
+                     ) as k1_in:
+        warm.run(iter(frames[:VO_WARMUP_FRAMES]))
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    vo = build()
+    st = _vo_timers(vo)
+    in_loop = [False]
+    verify = vo._try_loop_closure
+
+    def flagged():
+        in_loop[0] = True
+        try:
+            return verify()
+        finally:
+            in_loop[0] = False
+    vo._try_loop_closure = flagged
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t_start = time.perf_counter()
+    with first_calls(matcher, "top2", lambda: "loop" if in_loop[0] else "pair") as k2_in:
+        er, et = vo.run(iter(frames))
+    t_end = time.perf_counter()
+    launches = read_counts()
+    gt_r, gt_t = seq.poses_r[:n_frames], seq.poses_t[:n_frames]
+    path = float(trajectory_path_length(gt_r, gt_t)[-1])
+    ate = ate_rmse(er, et, gt_r, gt_t, with_scale=True)
+    raw_r, raw_t = np.stack(vo.poses_r), np.stack(vo.poses_t)
+    ate_raw = ate_rmse(raw_r, raw_t, gt_r, gt_t, with_scale=True)
+    s, _, _ = horn_align(camera_centers(er, et), camera_centers(gt_r, gt_t), with_scale=True)
+    drift, rot_drift = kitti_drift(er, (et * s).astype(np.float32), gt_r, gt_t,
+                                   lengths=(0.25 * path, 0.5 * path), step=2)
+    tracked = sum(1 for x in vo.stats if x["ok"])
+    others = sum(launches[k] for k in ("octave", "ori_hist", "desc_raw", "sep"))
+    marks = st["frame_end"]
+    frame_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    n_ev = len(st["event_ms"])
+    out = dict(frames=n_frames, tracked=tracked, keyframes=vo.n_kf_total, ring=vo.n_kf,
+               closures=vo.n_closures, gate_rejects=vo.n_gate_rejects, ate=ate,
+               ate_raw=ate_raw, path=path, drift_pct=drift, rot_drift=rot_drift,
+               fps=(n_frames - 1) / (t_end - t_start), frame_ms=frame_ms,
+               launches=launches, n_events=n_ev, st=st, warmup_s=warmup_s,
+               rescued=sum(1 for x in vo.stats if x["pnp_ok"]), gate_log=vo.gate_log,
+               k1_in=[k1_in[i] for i in sorted(k1_in)], n_k1=n_k1, k2_in=k2_in,
+               k1_per_frame=(launches["sampler"] - st["event_k1"]) / n_frames,
+               k2_per_frame=(launches["matcher"] - st["event_k2"]) / (n_frames - 1),
+               k1_per_event=st["event_k1"] / max(n_ev, 1),
+               k2_per_event=st["event_k2"] / max(n_ev, 1),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               bars=(tracked >= VO_MIN_TRACKED * len(vo.stats) and vo.n_kf >= VO_MIN_KF
+                     and vo.n_closures >= 1 and ate < VO_ATE_OF_PATH * path and not others
+                     and launches["sampler"] > 0 and launches["matcher"] > 0))
+    log("mono_vo", image="x".join(map(str, frames.shape[-2:])), frames=n_frames,
+        warmup_s=f"{warmup_s:.3f}", tracked=tracked, pairs=len(vo.stats),
+        rescued=out["rescued"], keyframes=vo.n_kf_total, ring=vo.n_kf,
+        closures=vo.n_closures, gate_rejects=vo.n_gate_rejects, ate=f"{ate:.6f}",
+        path=f"{path:.4f}", ate_of_path=f"{ate / path:.5f}",
+        raw_ate_of_path=f"{ate_raw / path:.5f}", corrected_over_raw=f"{ate / ate_raw:.4f}",
+        kitti_drift_pct=f"{drift:.4f}", rot_drift_deg_per_m=f"{rot_drift:.4f}",
+        fps=f"{out['fps']:.3f}", frame_ms=_spread(frame_ms),
+        events=n_ev, event_ms=_spread(st["event_ms"]), sim3_ms=_spread(st["sim3_ms"]),
+        window_ba_ms=_spread(st["ba_ms"]), k1_per_frame=f"{out['k1_per_frame']:.2f}",
+        k2_per_pair=f"{out['k2_per_frame']:.2f}", k1_per_event=f"{out['k1_per_event']:.2f}",
+        k2_per_event=f"{out['k2_per_event']:.2f}", peak_mem_gb=f"{out['peak_mem_gb']:.3f}",
+        launches=json.dumps(launches), card=json.dumps(smi_line()))
+    log("mono_vo", gate_log=json.dumps(vo.gate_log))
+    return out
+
+
+def mono_vo_path(dev, seq) -> dict:
+    """Phase 20: MonoVO.run on the north-star scene's left images at full
+    width (the reference soak's VOConfig, ba_window 4).  If no closure
+    fires in STEREO_FRAMES frames, the scene's 300 frames are rendered and
+    run instead; every other bar stays."""
+    run = mono_vo_run(dev, seq, STEREO_FRAMES)
+    if run["closures"] == 0:
+        log("mono_vo", no_closure_at=STEREO_FRAMES, rerun_frames=300)
+        from cusift_tpu_torch.data.synthetic import two_plane_stereo_sequence
+        seq = two_plane_stereo_sequence(300, 480, 640, **STEREO_SCENE)
+        run = mono_vo_run(dev, seq, 300)
+    if (not run["bars"] or len(run["k1_in"]) != run["n_k1"]
+            or set(run["k2_in"]) != {"pair", "loop"}):
+        raise AssertionError(
+            f"mono VO: tracked {run['tracked']}/{run['frames'] - 1}, keyframes "
+            f"{run['keyframes']}, closures {run['closures']}, ATE {run['ate']} of path "
+            f"{run['path']}, launches {run['launches']}, K1 inputs {len(run['k1_in'])}, "
+            f"K2 inputs {sorted(run['k2_in'])}")
+    return run
+
+
+SFM_RGBD_SCENE = dict(seed=0, motion_scale=0.6, detail=0.25, detail_octaves=4)
+SFM_MONO_SCENE = dict(seed=3, motion_scale=0.8)
+
+
+def sfm_path(dev) -> dict:
+    """Phase 21: reconstruct_rgbd as `cli.py sfm` calls it on a 10-frame
+    480x640 planar snippet, and reconstruct_mono on the 10-frame two-plane
+    scene, both at 2048 keypoints, each held to tests/test_sfm.py's bars."""
+    from cusift_tpu_torch import BAConfig, RansacConfig, SiftConfig
+    from cusift_tpu_torch.data.evaluation import ate_rmse, trajectory_path_length
+    from cusift_tpu_torch.data.synthetic import planar_rgbd_sequence, two_plane_sequence
+    from cusift_tpu_torch.models.sfm import reconstruct_mono, reconstruct_rgbd
+
+    cfg = SiftConfig(**SLAM_SIFT)
+    seq = planar_rgbd_sequence(10, 480, 640, **SFM_RGBD_SCENE)
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = reconstruct_rgbd(seq.images, seq.depths, seq.intr, sift_cfg=cfg,
+                           ransac_cfg=RansacConfig(inlier_thresh_3d=0.03),
+                           ba_cfg=BAConfig(huber_delta=4.0, num_fixed_poses=2), device=dev)
+    rgbd_s = time.perf_counter() - t0
+    rgbd_launches = read_counts()
+    ate = ate_rmse(rec.poses_r, rec.poses_t, seq.poses_r, seq.poses_t)
+    z_err = float(np.median(np.abs(rec.points[:, 2] - 2.0)))
+    c, c0 = float(rec.ba.cost), float(rec.ba.initial_cost)
+    if not (rec.n_tracks > 40 and rec.n_obs >= 2 * rec.n_tracks and c < c0
+            and np.isfinite(rec.points).all() and ate < 0.02 and z_err < 0.05):
+        raise AssertionError(f"sfm rgbd: tracks {rec.n_tracks}, obs {rec.n_obs}, BA {c0} -> "
+                             f"{c}, ATE {ate}, median |z - 2| {z_err}")
+    log("sfm", kind="rgbd", image="x".join(map(str, seq.images.shape[-2:])), frames=10, tracks=rec.n_tracks, obs=rec.n_obs,
+        ba_cost=f"{c0:.6g}->{c:.6g}", ate_m=f"{ate:.6f}", median_z_err=f"{z_err:.6f}",
+        seconds=f"{rgbd_s:.3f}", launches=json.dumps(rgbd_launches),
+        card=json.dumps(smi_line()))
+
+    mseq = two_plane_sequence(10, 480, 640, **SFM_MONO_SCENE)
+    reset_counts()
+    t0 = time.perf_counter()
+    mrec = reconstruct_mono(mseq.images, mseq.intr, sift_cfg=cfg, device=dev)
+    mono_s = time.perf_counter() - t0
+    mono_launches = read_counts()
+    path = float(trajectory_path_length(mseq.poses_r, mseq.poses_t)[-1])
+    mate = ate_rmse(mrec.poses_r, mrec.poses_t, mseq.poses_r, mseq.poses_t, with_scale=True)
+    # structure numbers (tests/test_sfm.py's, failing in the reference too)
+    z0 = (mrec.points @ mrec.poses_r[0].T + mrec.poses_t[0])[:, 2]
+    z0 = z0[np.abs(z0) > 1e-6]
+    front = float(np.mean(z0 > 0)) if z0.size else float("nan")
+    zf = z0[z0 > 0]
+    ratio = (float(np.median(zf[zf > np.median(zf)]) / np.median(zf[zf <= np.median(zf)]))
+             if zf.size > 2 else float("nan"))
+    if not (mrec.n_tracks >= 100 and mrec.n_obs >= 2 * mrec.n_tracks and mate < 0.05 * path):
+        raise AssertionError(f"sfm mono: tracks {mrec.n_tracks}, obs {mrec.n_obs}, ATE {mate} "
+                             f"of path {path}")
+    log("sfm", kind="mono", image="x".join(map(str, mseq.images.shape[-2:])), frames=10, tracks=mrec.n_tracks, obs=mrec.n_obs,
+        ba_cost=f"{float(mrec.ba.initial_cost):.6g}->{float(mrec.ba.cost):.6g}",
+        ate=f"{mate:.6f}", ate_of_path=f"{mate / path:.5f}", in_front_of_init=f"{front:.4f}",
+        far_near_ratio=f"{ratio:.4f}", seconds=f"{mono_s:.3f}",
+        launches=json.dumps(mono_launches), card=json.dumps(smi_line()))
+    others = sum(rgbd_launches[k] + mono_launches[k]
+                 for k in ("octave", "ori_hist", "desc_raw", "sep"))
+    if others or not all(l["sampler"] and l["matcher"] for l in (rgbd_launches, mono_launches)):
+        raise AssertionError(f"sfm launches {rgbd_launches} {mono_launches}")
+    return dict(rgbd=rgbd_launches, mono=mono_launches)
+
+
+def check_matcher_vo(dev, calls) -> dict:
+    """K2 at the VO path's inputs: its first pair-step match and its first
+    loop-verification match (2048 x 2048), each against its plain version
+    and timed."""
+    out = {}
+    for kind in ("pair", "loop"):
+        ta, tb, tv = calls[kind]
+        err = _k2_case(f"vo {kind}", ta, tb, tv)
+        out[kind] = dict(max_abs_err=err, valid_b=int(tv.sum()),
+                         **_k2_timed(f"k2 vo {kind}", ta, tb, tv))
     return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), **out)
 
 
@@ -1460,6 +1859,20 @@ def main() -> int:
     pair = stereo_pair(dev, stereo_seq)
     stereo = stereo_slam_path(dev, stereo_seq)
     log("phases 16-18", seconds=f"{time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    mono = mono_pair(dev, stereo_seq)
+    vo = mono_vo_path(dev, stereo_seq)
+    sfm = sfm_path(dev)
+    k1_vo = check_sampler_slam(dev, vo["k1_in"], path="vo")
+    k2_vo = check_matcher_vo(dev, vo["k2_in"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_vo["max_abs_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_vo["max_abs_err"])
+    log("phases 19-22", seconds=f"{time.perf_counter() - t0:.3f}")
+    vo_launches = {
+        key: dict(pair=mono["launches"][key], run=vo["launches"][key], frames=vo["frames"],
+                  per_frame=vo[f"k{i}_per_frame"], per_event=vo[f"k{i}_per_event"],
+                  events=vo["n_events"])
+        for i, key in ((1, "sampler"), (2, "matcher"))}
     stereo_launches = {
         key: dict(pair=pair[key], per_frame_chunk1=stereo[1][f"k{i}_per_frame"],
                   per_frame_chunk8=stereo[CHUNK][f"k{i}_per_frame"],
@@ -1476,14 +1889,18 @@ def main() -> int:
              slam_launches=slam["sampler"], slam_path="RGB-D SLAM (phase 14)",
              slam_frame=k1_slam, chunked_slam_launches=chunked["sampler"],
              stereo_launches=stereo_launches["sampler"],
-             stereo_path="stereo SLAM (phase 18)", **k1),
+             stereo_path="stereo SLAM (phase 18)", vo_launches=vo_launches["sampler"],
+             vo_path="mono VO (phases 19-20)", vo_shape=k1_vo,
+             sfm_launches={k: sfm[k]["sampler"] for k in ("rgbd", "mono")}, **k1),
         dict(name="match_top2", route="cuda", source=src + "matcher.cu",
              replaces=tpu + "matcher.py:43", path="two-view (phase 5)",
              launches=launches["matcher"], rgbd_pair_launches=rgbd["matcher"],
              slam_launches=slam["matcher"], slam_path="RGB-D SLAM (phase 14)",
              slam_shape=k2_slam, chunked_slam_launches=chunked["matcher"],
              stereo_launches=stereo_launches["matcher"],
-             stereo_path="stereo SLAM (phase 18)", **k2),
+             stereo_path="stereo SLAM (phase 18)", vo_launches=vo_launches["matcher"],
+             vo_path="mono VO (phases 19-20)", vo_shape=k2_vo,
+             sfm_launches={k: sfm[k]["matcher"] for k in ("rgbd", "mono")}, **k2),
         dict(name="fused_octave", route="cuda", source=src + "octave.cu",
              replaces=tpu + "octave.py:186", path="batched fused (phase 11)",
              launches=batch["octave"], **k3),

@@ -11,7 +11,7 @@ configs (`config.py`), built from the same keyword arguments.
 """
 
 from .config import (BAConfig, MatchConfig, PoseGraphConfig, RansacConfig,
-                     SiftConfig, SlamConfig)
+                     SiftConfig, SlamConfig, VOConfig)
 
 __all__ = ["SiftConfig", "MatchConfig", "RansacConfig", "BAConfig",
-           "PoseGraphConfig", "SlamConfig"]
+           "PoseGraphConfig", "SlamConfig", "VOConfig"]

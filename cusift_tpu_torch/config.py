@@ -2,7 +2,8 @@
 
 The port keeps its own copy of the configs its paths read: `SiftConfig`,
 `MatchConfig` and `RansacConfig` (the two-view path), and `BAConfig`,
-`PoseGraphConfig` and `SlamConfig` (the RGB-D SLAM path), with every field
+`PoseGraphConfig` and `SlamConfig` (the RGB-D SLAM path), and `VOConfig`
+(monocular VO), with every field
 and default of the reference, so the two packages are built from the same
 keyword arguments and agree on every derived size.  Fields that steer
 only the TPU build (`sampler_group`, `fused_tile_rows`, `conv_backend`,
@@ -218,6 +219,47 @@ class SlamConfig:
     # apply the fused event's packed result at the next reader of the
     # pose/edge state instead of at once; results are identical
     defer_events: bool = True
+
+
+@dataclass(frozen=True)
+class VOConfig:
+    """Sequence-scale monocular VO (BASELINE configs[4]): keyframe ring,
+    loop closure and the Sim(3) pose graph (`models/odometry.py`)."""
+
+    max_keyframes: int = 128
+    kf_every: int = 5               # frames between keyframes (upper bound)
+    kf_min_rotation: float = 0.15   # radians since last keyframe
+    # translation gate in MULTIPLES of the smoothed per-pair translation
+    # (monocular global units are arbitrary)
+    kf_min_translation: float = 4.0
+    loop_min_score: float = 0.10    # retrieval similarity gate
+    loop_temporal_gap: int = 20     # keyframes; ignore recent neighbours
+    loop_min_inliers: int = 60      # essential-inlier verification gate
+    loop_min_common: int = 8        # tracked-depth overlap for edge scale
+    # eviction once the ring is full: "redundant" | "oldest" | "none"
+    kf_evict: str = "redundant"
+    # tracking reference: "prev" (each consecutive pair) or "keyframe"
+    # (each frame against the last keyframe)
+    track_ref: str = "prev"
+    # persistent-map scale anchoring (`models/monomap.py` in the
+    # reference; not ported yet, so True raises) and its parameters
+    map_anchor: bool = False
+    map_size: int = 8192
+    map_active_kf: int = 6
+    map_insert_budget: int = 512
+    map_min_inliers: int = 20
+    map_min_obs: int = 8
+    map_min_anchor: int = 16
+    map_scale_gain: float = 0.4
+    # re-measure the pose with PnP RANSAC against the reference frame's
+    # chain-scaled depths when the essential fit fails
+    pnp_rescue: bool = True
+    # Sim(3) correction health gate: "speed" (reject a solve whose
+    # log-speed dispersion exceeds raw's by sim3_gate_margin, unless its
+    # correction roughness stays under sim3_gate_smooth) or "off"
+    sim3_gate: str = "speed"
+    sim3_gate_margin: float = 1.15
+    sim3_gate_smooth: float = 0.10
 
 
 def replace(cfg, **kw):

@@ -50,10 +50,10 @@ from ..convert import slam_checkpoint_arrays, slam_state_fields
 from ..data.evaluation import ate_rmse
 from ..ops.geometry import backproject
 from ..ops.match import match
-from ..ops.ransac import find_rigid
+from ..ops.ransac import find_rigid, step_generators
 from ..optim.lie import inverse, se3_log
 from ..optim.posegraph import PoseGraph, optimize as pg_optimize
-from ..utils.device import as_input
+from ..utils.device import as_input, run_device
 from ..utils.pipeline import device_chunks, device_frames
 from ..utils.precision import f32_matmuls
 from .evict import select_victim
@@ -273,14 +273,6 @@ class SlamState:
     n_kf_total: int = 0       # keyframes ever inserted (n_kf pins at capacity)
 
 
-def _device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("Slam: no CUDA device for the keyframe map: pass "
-                           "device='cpu' to run on the CPU")
-    return dev
-
-
 class Slam:
     """Sequential RGB-D SLAM (BASELINE configs[3]).
 
@@ -294,8 +286,8 @@ class Slam:
                  dist_ba: bool = False, *, device=None):
         if dist_ba:
             raise NotImplementedError("Slam(dist_ba=True): the distributed window "
-                                      "BA is not ported yet")
-        self.device = _device(device)
+                                      "BA is not ported yet (ROADMAP queue 1, item 12)")
+        self.device = run_device(device, "Slam")
         self.intr = torch.as_tensor(np.asarray(intr), dtype=torch.float32,
                                     device=self.device)
         self.sift_cfg = sift_cfg
@@ -450,16 +442,10 @@ class Slam:
         s.weight.append(float(weight))
 
     def _next_key(self) -> torch.Generator:
-        """A fresh generator for one RANSAC call, seeded from (seed, counter).
-
-        The seed's high word is the Slam seed; its low word mixes the seed
-        into the counter, since the CPU generator (mt19937) keeps only the
-        low 32 bits of its seed.  Seed 0 gives the counter itself.
-        """
+        """A fresh generator for one RANSAC call, seeded from (seed, counter)
+        (`ops/ransac.py:step_generators`)."""
         self._key_ctr += 1
-        s = self._seed & 0xFFFFFFFF
-        low = (self._key_ctr + s * 0x9E3779B9) & 0xFFFFFFFF
-        return torch.Generator(device=self.device).manual_seed((s << 32) | low)
+        return step_generators(self.device, self._seed, self._key_ctr)[0]
 
     def _next_keys(self, n: int) -> list[torch.Generator]:
         """n fresh generators, as n calls of `_next_key` give them."""

@@ -35,6 +35,19 @@ class RigidResult(NamedTuple):
     ok: torch.Tensor           # bool
 
 
+def step_generators(device, seed: int, counter: int, n: int = 1) -> list[torch.Generator]:
+    """n generators for one step's RANSAC calls, seeded from (seed,
+    counter) where the reference derives one threefry key per step and
+    splits it n ways.  The seed's high word is `seed`; its low word mixes
+    the seed into the counter (the CPU generator keeps only the low 32
+    bits of its seed) and the child index.  Seed 0, child 0 gives the
+    counter itself."""
+    s = seed & 0xFFFFFFFF
+    low = (counter + s * 0x9E3779B9) & 0xFFFFFFFF
+    return [torch.Generator(device=device).manual_seed(
+        (s << 32) | ((low + c * 0x632BE5AB) & 0xFFFFFFFF)) for c in range(n)]
+
+
 def _sample_indices(gen: torch.Generator, valid: torch.Tensor, nhyp: int,
                     k: int) -> torch.Tensor:
     """[nhyp, k] indices drawn with replacement from the valid set.

@@ -24,3 +24,13 @@ def as_input(x, device=None) -> torch.Tensor:
     if not a.flags.writeable:          # numpy views of jax arrays
         a = a.copy()
     return torch.from_numpy(a).to(dev)
+
+
+def run_device(device, who: str) -> torch.device:
+    """The device a stateful entry point (`Slam`, `MonoVO`, the SfM builders)
+    keeps its tensors on: "cuda" unless the caller asks otherwise, and an
+    error, not a quiet CPU run, when that is a GPU the machine lacks."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device: pass device='cpu' to run on the CPU")
+    return dev

@@ -2,8 +2,8 @@
 package's.
 
 The port keeps its own copy of `SiftConfig`, `MatchConfig`,
-`RansacConfig`, `BAConfig`, `PoseGraphConfig` and `SlamConfig` (and
-`replace`), so both packages are built from the same keyword arguments.  The copies must keep every field name and default of the
+`RansacConfig`, `BAConfig`, `PoseGraphConfig`, `SlamConfig` and
+`VOConfig` (and `replace`), so both packages are built from the same keyword arguments.  The copies must keep every field name and default of the
 reference, and every copied method must give the same value, at the
 default configuration and at the bench's.
 """
@@ -26,7 +26,8 @@ CONFIGS = {"default": {}, "bench": BENCH,
 
 
 @pytest.mark.parametrize("name", ["SiftConfig", "MatchConfig", "RansacConfig",
-                                  "BAConfig", "PoseGraphConfig", "SlamConfig"])
+                                  "BAConfig", "PoseGraphConfig", "SlamConfig",
+                                  "VOConfig"])
 def test_fields_and_defaults_equal(name):
     ours = {f.name: f.default for f in dataclasses.fields(getattr(tcfg, name))}
     ref = {f.name: f.default for f in dataclasses.fields(getattr(jcfg, name))}

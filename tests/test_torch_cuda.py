@@ -20,7 +20,15 @@ fused and split events agree within 1e-3 and whose deferred and eager
 events agree bit for bit.  Chunked tracking: a chunk step's rows equal the
 sequential steps' bit for bit; `device_chunks` delivers `device_frames`'
 tensors.  Stereo: `_extract_stereo_points` on the card against the CPU,
-admissible counts within 1%, depths within 1e-4 relative.
+admissible counts within 1%, depths within 1e-4 relative.  Mono VO:
+`pair_step` on the card against the CPU on the same frame-A features,
+with the same RANSAC samples (each device's generator is its own, so the
+samples are drawn on the CPU and fed to both): the same inliers, R within
+1e-3, t within 1e-2 (the float32 IRLS conditioning of
+tests/test_torch_odometry_samples.py); `find_essential` and `find_pnp` on the
+card at tests/test_essential.py's and tests/test_pnp.py's bars; the Sim(3)
+`optimize` on the card within 1e-3 relative of the CPU's cost; a short
+`MonoVO` run on the card tracking every pair.
 """
 
 import numpy as np
@@ -704,3 +712,133 @@ def test_device_chunks_match_device_frames_on_the_card(dev):
         assert c.device.type == "cuda" and c.shape == (3, 2, 48, 64)
         for i in range(3):
             assert torch.equal(c[i], singles[min(3 * k + i, 6)])
+
+
+def _drawn_samples(monkeypatch):
+    """Draw RANSAC samples with numpy on the CPU, for any device: each
+    call maps one uniform table onto its valid set."""
+    from cusift_tpu_torch.ops import essential, pnp
+
+    table = torch.from_numpy(np.random.default_rng(17).random((1024, 12)).astype(np.float32))
+
+    def draw(gen, valid, nhyp, k):
+        cnt = torch.cumsum(valid.to(torch.int32), 0)
+        m = (table[:nhyp, :k].to(valid.device) * cnt[-1].clamp(min=1)).to(torch.int32)
+        return torch.searchsorted(cnt, m + 1).clamp(max=valid.shape[0] - 1)
+
+    monkeypatch.setattr(essential, "_sample_indices", draw)
+    monkeypatch.setattr(pnp, "_sample_indices", draw)
+
+
+def test_pair_step_card_matches_cpu(dev, monkeypatch):
+    """One 240x320 pair (tests/test_odometry.py's scene) on both devices
+    from the same frame-A features and the same samples."""
+    from cusift_tpu_torch import RansacConfig
+    from cusift_tpu_torch.data.synthetic import two_plane_sequence
+    from cusift_tpu_torch.models.odometry import pair_step
+    from cusift_tpu_torch.models.sift import extract
+
+    _drawn_samples(monkeypatch)
+    seq = two_plane_sequence(n_frames=3, h=240, w=320, seed=3, motion_scale=0.6)
+    cfg = SiftConfig(max_kpts=768, max_kpts_per_octave=512, num_octaves=4)
+    fa = extract(torch.from_numpy(seq.images[0]), cfg)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        before = (k1.launches, k2.launches)
+        res, row = pair_step(*(a.to(d) for a in (fa.desc, fa.valid, torch.stack([fa.x, fa.y], -1),
+                                                 torch.zeros(768))),
+                             torch.from_numpy(seq.images[1]).to(d),
+                             torch.from_numpy(seq.intr).to(d), torch.ones((), device=d), cfg,
+                             ransac_cfg=RansacConfig(inlier_thresh_epi=4e-3))
+        if d.type == "cuda":
+            assert k1.launches - before[0] == 2 * cfg.num_octaves_for(240, 320)
+            assert k2.launches - before[1] == 1
+        out[d.type] = (res, row)
+    (rc, row_c), (rg, row_g) = out["cpu"], out["cuda"]
+    assert row_c[15] == row_g[15] == 1.0 and abs(row_c[13] - row_g[13]) <= 1
+    np.testing.assert_allclose(row_g[:9], row_c[:9], atol=1e-3)
+    np.testing.assert_allclose(row_g[9:12], row_c[9:12], atol=1e-2)
+
+
+def test_essential_and_pnp_on_the_card(dev):
+    """find_essential and find_pnp on the card at the reference tests'
+    bars (512 correspondences, 150 outliers, noise 5e-4; 256 landmarks
+    with 35% outliers)."""
+    from cusift_tpu_torch import RansacConfig
+    from cusift_tpu_torch.ops.essential import find_essential
+    from cusift_tpu_torch.ops.pnp import find_pnp
+    from cusift_tpu_torch.optim.lie import se3_exp
+
+    rs = np.random.default_rng(4)
+    pts = rs.uniform([-2.0, -1.5, 4.0], [2.0, 1.5, 10.0], size=(512, 3))
+    r, t = (a.numpy().astype(np.float64) for a in se3_exp(
+        torch.tensor([0.3, 0.05, 0.1, 0.02, 0.06, 0.01], dtype=torch.float64)))
+    xa = pts[:, :2] / pts[:, 2:] + rs.normal(scale=5e-4, size=(512, 2))
+    pb = pts @ r.T + t
+    xb = pb[:, :2] / pb[:, 2:] + rs.normal(scale=5e-4, size=(512, 2))
+    xb[rs.choice(512, 150, replace=False)] = rs.uniform(-0.5, 0.5, size=(150, 2))
+    res = find_essential(*(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (xa, xb)),
+                         torch.ones(512, dtype=torch.bool, device=dev), RansacConfig(),
+                         torch.Generator(device=dev).manual_seed(1))
+    assert res.r.device.type == "cuda" and bool(res.ok) and int(res.num_inliers) > 300
+    np.testing.assert_allclose(res.r.cpu().numpy(), r, atol=1e-2)
+    tt = res.t.cpu().numpy()
+    assert tt @ t / (np.linalg.norm(tt) * np.linalg.norm(t)) > 0.99
+
+    xy = rs.uniform(-0.5, 0.5, size=(256, 2))
+    z = rs.uniform(2.0, 8.0, size=(256, 1))
+    pw = (np.concatenate([xy * z, z], -1) - t) @ r
+    bad = rs.random(256) < 0.35
+    xy[bad] += rs.uniform(0.05, 0.3, size=(bad.sum(), 2)) * rs.choice([-1, 1], size=(bad.sum(), 2))
+    p = find_pnp(*(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (pw, xy)),
+                 torch.ones(256, dtype=torch.bool, device=dev), RansacConfig(num_hypotheses=256),
+                 torch.Generator(device=dev).manual_seed(2))
+    assert bool(p.ok) and int(p.num_inliers) >= 0.9 * (~bad).sum()
+    assert not np.any(p.inliers.cpu().numpy() & bad)
+    np.testing.assert_allclose(p.r.cpu().numpy(), r, atol=5e-3)
+    np.testing.assert_allclose(p.t.cpu().numpy(), t, atol=1e-2)
+
+
+def test_sim3_optimize_card_matches_cpu(dev):
+    """The Sim(3) LM on tests/test_sim3.py's drifted loop on the card: the
+    final cost within 1e-3 relative of the CPU's (the scatter-adds are
+    atomics on the card) and 5% of the initial one."""
+    from cusift_tpu_torch import PoseGraphConfig
+    from cusift_tpu_torch.data.synthetic import pose_ring
+    from cusift_tpu_torch.optim.sim3graph import Sim3Graph, optimize
+
+    ring = pose_ring(n=16, drift=0.02, seed=1)
+    n, e = ring["init_r"].shape[0], ring["edge_i"].shape[0]
+    arrays = dict(poses_r=ring["init_r"], poses_t=ring["init_t"], poses_s=np.ones(n, np.float32),
+                  edge_i=ring["edge_i"], edge_j=ring["edge_j"], meas_r=ring["meas_r"],
+                  meas_t=ring["meas_t"],
+                  meas_s=np.exp(np.random.default_rng(0).normal(0, 0.02, e)).astype(np.float32),
+                  weight=ring["weight"])
+    cfg = PoseGraphConfig(max_iters=30, cg_iters=60)
+    cost = {}
+    for d in ("cpu", dev):
+        res = optimize(Sim3Graph(**{k: torch.from_numpy(np.array(v)).to(d)
+                                    for k, v in arrays.items()}), cfg)
+        cost[torch.device(d).type] = (float(res.cost), float(res.initial_cost))
+    assert cost["cuda"][0] < 0.05 * cost["cuda"][1]
+    np.testing.assert_allclose(cost["cuda"][0], cost["cpu"][0], rtol=1e-3)
+
+
+def test_mono_vo_on_the_card(dev):
+    """A 10-frame MonoVO run with keyframes and window BA on the card
+    (tests/test_odometry.py's checkpoint scene): every pair tracked, its
+    ring on the card, K1 and K2 launched."""
+    from cusift_tpu_torch import VOConfig
+    from cusift_tpu_torch.data.synthetic import two_plane_sequence
+    from cusift_tpu_torch.models.odometry import MonoVO
+
+    seq = two_plane_sequence(n_frames=10, h=240, w=320, seed=9, motion_scale=0.7, amplitude=2.0)
+    vo = MonoVO(seq.intr, sift_cfg=SiftConfig(max_kpts=256, max_kpts_per_octave=192,
+                                              num_octaves=3),
+                vo_cfg=VOConfig(max_keyframes=16, kf_every=2, loop_temporal_gap=50),
+                ba_window=4, device=dev)
+    before = (k1.launches, k2.launches)
+    er, et = vo.run(seq.images)
+    assert vo._kf_desc.device.type == "cuda" and vo.n_kf >= 4
+    assert all(s["ok"] for s in vo.stats) and np.isfinite(et).all() and len(er) == 10
+    assert k1.launches - before[0] == 10 * 2 * 3 and k2.launches > before[1] + 9

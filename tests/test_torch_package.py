@@ -3,7 +3,9 @@
 * The port imports neither jax, cv2 nor any module of the JAX package
   `cusift_tpu` (checked in a fresh interpreter that runs a tiny CPU
   match_pair, RGB-D pair alignment, SLAM run (sequential and chunked),
-  chunked stereo SLAM run and direct pyramid, and in one that imports
+  chunked stereo SLAM run, direct pyramid, a 4-frame MonoVO run with
+  keyframes, both SfM builders, essential, PnP and Sim(3) solves, and in
+  one that imports
   `chip_smoke` and every module of the port): the machine with the GPU has
   neither jax nor cv2.
 * `utils/timers.py:Timer` takes one sample a call, and a result on the
@@ -86,6 +88,28 @@ stereo.run(zip(st.images_l, st.images_r), chunk=2)
 assert len(stereo.trajectory()[0]) == 3
 from dataclasses import replace
 assert len(build_pyramid(torch.from_numpy(a), replace(cfg, pyramid_impl="direct"))) == 2
+from cusift_tpu_torch import VOConfig
+from cusift_tpu_torch.data.synthetic import two_plane_sequence
+from cusift_tpu_torch.models.odometry import MonoVO
+from cusift_tpu_torch.models.sfm import reconstruct_mono, reconstruct_rgbd
+mono = two_plane_sequence(4, 96, 128, seed=3, motion_scale=0.8)
+vo = MonoVO(mono.intr, cfg, vo_cfg=VOConfig(max_keyframes=4, kf_every=1), ba_window=3,
+            device="cpu")
+assert len(vo.run(mono.images)[0]) == 4 and vo.n_kf >= 2
+rec = reconstruct_rgbd(seq.images, seq.depths, seq.intr, cfg,
+                       ransac_cfg=RansacConfig(num_hypotheses=32), device="cpu")
+assert rec.poses_r.shape == (3, 3, 3)
+try:
+    reconstruct_mono(mono.images, mono.intr, cfg, ransac_cfg=RansacConfig(num_hypotheses=32),
+                     device="cpu")
+except RuntimeError as e:          # too few features at this size to verify a pair
+    assert "no consecutive pair" in str(e)
+from cusift_tpu_torch.optim.sim3graph import Sim3Graph, optimize
+z = torch.zeros
+g = Sim3Graph(torch.eye(3).repeat(2, 1, 1), z(2, 3), torch.ones(2), torch.tensor([0]),
+              torch.tensor([1]), torch.eye(3)[None], torch.ones(1, 3), torch.ones(1),
+              torch.ones(1))
+assert torch.isfinite(optimize(g).cost)
 """ + _CHECK
 
 # chip_smoke.py imports the port inside its phases: import it, every
@@ -103,7 +127,8 @@ names = {m.name for m in pkgutil.walk_packages(cusift_tpu_torch.__path__, "cusif
 for mod in ("config", "optim.lie", "optim.robust", "optim.ba", "optim.posegraph",
             "ops.geometry", "ops.mat3", "ops.ransac", "models.twoview", "data.synthetic",
             "data.evaluation", "models.local_ba", "models.evict", "utils.pipeline",
-            "models.slam", "ops.stereo", "models.stereo", "utils.timers"):
+            "models.slam", "ops.stereo", "models.stereo", "utils.timers", "ops.essential",
+            "ops.pnp", "optim.sim3graph", "utils.image", "models.odometry", "models.sfm"):
     assert "cusift_tpu_torch." + mod in names, mod
 """ + _CHECK
 
