@@ -97,9 +97,33 @@ Phases (one line each; any failure raises and exits non-zero):
      `reconstruct_mono`, each on 10 frames at 480x640 with 2048 keypoints,
      at tests/test_sfm.py's bars (the mono structure printed, not held);
  22. K1 and K2 at the VO path's inputs (a frame's 10 K1 calls, K2's first
-     pair-step and loop-verification calls), as phase 15.
+     pair-step and loop-verification calls), as phase 15;
+ 23. the distributed solvers on a one-rank NCCL group on the card:
+     `distributed_bundle_adjust` (tests/test_parallel.py:47's problem),
+     `window_ba_dist` (a 5-keyframe window of phase 14's orbit at 2048
+     keypoints) and `distributed_pg_optimize` (a 24-pose ring) against
+     `bundle_adjust`, `window_ba` and `optimize` at the CPU tests'
+     tolerances, with the all-reduces per LM iteration and the time of
+     one; then the same on 2 and 4 gloo ranks sharing the card (gloo
+     stages CUDA tensors through the host, as the phase prints);
+ 24. `Slam(dist_ba=True)` on phase 14's orbit, one NCCL rank: trajectory
+     within 1e-3 m of phase 14's, the same keyframes, frames/s beside it;
+ 25. the CLI on the card, one subprocess a command at its defaults:
+     `demo` (corner error < 2 px), `slam --synthetic 12` (ATE < 0.05 m),
+     `odo --synthetic 8 --loop` (>= 90% tracked, Sim(3) ATE < 0.15 of
+     the path), `stereo --synthetic 8` (metric ATE < 0.04 of the path),
+     `sfm --synthetic 8` (ATE < 0.02 m), `dist`, and `slam --synthetic
+     12 --dist` under `torchrun --standalone --nproc-per-node 1` (the
+     printed ATE equal to the plain run's);
+ 26. disk: a 480x640 TUM folder (12 frames, 8-bit RGB and 16-bit depth
+     PNGs, associations, ground truth) and a KITTI folder (16 stereo
+     frames, calib, poses) written by the port's PNG writer, through
+     `slam --tum`, `odo --kitti` and `stereo --kitti` at those bars; the
+     decoder that ran and its decode rate;
+ 27. `entry.entry()` (the two-view step) and `entry.dryrun_multichip(1)`.
 The line before the last is a JSON object with each kernel's launches on
-its path, its error against the plain version, its times and its bound;
+its path (K1's and K2's on phases 23-27 under `new_path_launches`), its
+error against the plain version, its times and its bound;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device it
 exits non-zero and prints no result.
 """
@@ -108,9 +132,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -250,11 +276,9 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count since `reset_counts`."""
-    from cusift_tpu_torch.kernels import matcher, octave, sampler
+    from cusift_tpu_torch.kernels import kernel_counts
 
-    return {"sampler": sampler.launches, "matcher": matcher.launches,
-            "octave": octave.launches, "ori_hist": sampler.ori_hist_launches,
-            "desc_raw": sampler.desc_raw_launches, "sep": sampler.sep_launches}
+    return kernel_counts()
 
 
 def sample_bytes(gauss, lvl, ys, xs) -> int:
@@ -1028,18 +1052,18 @@ def first_calls(module, name: str, key):
 
 def slam_setup(n_frames: int = SLAM_FRAMES, scene: dict = SLAM_SCENE):
     """Phase 14's orbit (`scene`: planar_rgbd_sequence's keywords) and a
-    builder of its Slam: (seq, frames, build), build(dev, **slam_cfg
-    overrides)."""
+    builder of its Slam: (seq, frames, build), build(dev, dist_ba=False,
+    **slam_cfg overrides)."""
     from cusift_tpu_torch import RansacConfig, SiftConfig, SlamConfig
     from cusift_tpu_torch.data.synthetic import planar_rgbd_sequence
     from cusift_tpu_torch.models.slam import Slam
 
     seq = planar_rgbd_sequence(n_frames, 480, 640, **scene)
 
-    def build(dev, **kw):
+    def build(dev, dist_ba=False, **kw):
         return Slam(seq.intr, sift_cfg=SiftConfig(**SLAM_SIFT),
                     ransac_cfg=RansacConfig(inlier_thresh_3d=0.03),
-                    slam_cfg=SlamConfig(**SLAM_CFG, **kw), device=dev)
+                    slam_cfg=SlamConfig(**SLAM_CFG, **kw), dist_ba=dist_ba, device=dev)
 
     return seq, list(zip(seq.images, seq.depths)), build
 
@@ -1137,7 +1161,7 @@ def slam_path(dev) -> tuple[dict, dict, dict]:
     frame_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     fps = (SLAM_FRAMES - 1) / (t_end - marks[0])
     n_steps = SLAM_FRAMES - 1            # every frame after the first tracks
-    stats = dict(fps=fps, keyframes=s.n_kf_total)
+    stats = dict(fps=fps, keyframes=s.n_kf_total, trajectory=slam.trajectory())
     log("slam", image="x".join(map(str, seq.images.shape[-2:])), frames=SLAM_FRAMES,
         tracked=tracked, keyframes=s.n_kf_total, closures=s.n_closures, window_bas=len(ba),
         window_bas_not_worse=len(ba_ok), ate_m=f"{ate:.6f}",
@@ -1814,6 +1838,400 @@ def check_matcher_vo(dev, calls) -> dict:
     return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), **out)
 
 
+# ---------- phases 23-27: distribution, the CLI, disk, entry points ----------
+
+DIST_BA_CFG = dict(max_iters=8, cg_iters=30, num_fixed_poses=2)    # tests/test_parallel.py:47
+WIN_BA_CFG = dict(max_iters=5, cg_iters=15, num_fixed_poses=2, huber_delta=4.0)
+DIST_RANKS = (2, 4)          # gloo ranks sharing the one card
+CLI_TIMEOUT_S = 300
+
+
+def _window_inputs(dev) -> list:
+    """A 5-keyframe window at the SLAM path's width: frames 0-4 of phase
+    14's orbit with 2048 keypoints, the three newest poses perturbed as
+    tests/test_parallel.py:152 does (numpy arrays)."""
+    from cusift_tpu_torch import SiftConfig
+    from cusift_tpu_torch.data.synthetic import se3_exp
+    from cusift_tpu_torch.models.slam import _extract_with_points
+
+    seq, frames, _ = slam_setup(n_frames=5)
+    intr = torch.from_numpy(seq.intr).to(dev)
+    out = [_extract_with_points(torch.from_numpy(img).to(dev), torch.from_numpy(d).to(dev),
+                                intr, SiftConfig(**SLAM_SIFT)) for img, d in frames]
+    rs = np.random.default_rng(1)
+    pr, pt = seq.poses_r.copy(), seq.poses_t.copy()
+    for k in (2, 3, 4):
+        dr, dt = se3_exp(rs.normal(scale=0.02, size=6))
+        pr[k] = dr @ seq.poses_r[k]
+        pt[k] = dr @ seq.poses_t[k] + dt
+    return [torch.stack([o[0].desc for o in out]).cpu().numpy(),
+            torch.stack([o[0].valid for o in out]).cpu().numpy(),
+            torch.stack([o[1] for o in out]).cpu().numpy(),
+            pr.astype(np.float32), pt.astype(np.float32), seq.intr, np.ones(5, np.float32)]
+
+
+def _close(tag, got, ref, rtol, atol) -> float:
+    got, ref = np.asarray(got), np.asarray(ref)
+    if not np.allclose(got, ref, rtol=rtol, atol=atol):
+        raise AssertionError(f"{tag}: max |diff| {np.abs(got - ref).max()} "
+                             f"(rtol {rtol}, atol {atol})")
+    return float(np.abs(got - ref).max())
+
+
+def _hold_dist(tag, ba, single, parts, win, win_ref, pg, pg_ref) -> dict:
+    """The distributed results against the single-device ones at the CPU
+    tests' tolerances (test_torch_dist_ba.py, test_torch_dist_pg.py)."""
+    from cusift_tpu_torch.parallel.dist_ba import gather_points
+
+    err = dict(
+        ba_cost0=_close(f"{tag} BA initial cost", float(ba.initial_cost),
+                        float(single.initial_cost), 1e-4, 0),
+        ba_poses=max(_close(f"{tag} BA t", ba.poses_t.cpu(), single.poses_t.cpu(), 1e-3, 1e-4),
+                     _close(f"{tag} BA R", ba.poses_r.cpu(), single.poses_r.cpu(), 1e-3, 1e-4)),
+        ba_points=_close(f"{tag} BA points", gather_points(parts, ba.points),
+                         single.points.cpu(), 1e-3, 1e-3),
+        window_cost0=_close(f"{tag} window cost", float(win[2]), float(win_ref[2]), 1e-4, 0),
+        window_poses=max(_close(f"{tag} window t", win[1].cpu(), win_ref[1].cpu(), 0, 5e-4),
+                         _close(f"{tag} window R", win[0].cpu(), win_ref[0].cpu(), 0, 5e-4)),
+        pg_cost=_close(f"{tag} graph cost", float(pg.cost), float(pg_ref.cost), 1e-4, 0),
+        pg_poses=_close(f"{tag} graph t", pg.poses_t.cpu(), pg_ref.poses_t.cpu(), 1e-3, 1e-4))
+    if not float(win[3]) <= float(win[2]):
+        raise AssertionError(f"{tag}: window BA cost {float(win[2])} -> {float(win[3])}")
+    return err
+
+
+@contextlib.contextmanager
+def _counted_all_reduces():
+    """Counts the `torch.distributed.all_reduce` calls made inside the
+    block (read from the yielded one-element list after it)."""
+    import torch.distributed as dist
+
+    count, plain = [0], dist.all_reduce
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return plain(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield count
+    finally:
+        dist.all_reduce = plain
+
+
+def dist_path(dev) -> dict:
+    """Phase 23: the distributed solvers on a one-rank NCCL group on the
+    card (`distributed_bundle_adjust`, `window_ba_dist`,
+    `distributed_pg_optimize` against `bundle_adjust`, `window_ba`,
+    `optimize`), with the all-reduces per LM iteration and their time;
+    then the same on 2 and 4 gloo ranks sharing the card."""
+    import torch.distributed as dist
+
+    from cusift_tpu_torch import BAConfig, MatchConfig, PoseGraphConfig
+    from cusift_tpu_torch.data.synthetic import ba_problem, pose_ring
+    from cusift_tpu_torch.models.local_ba import window_ba
+    from cusift_tpu_torch.optim.ba import BAProblem, bundle_adjust
+    from cusift_tpu_torch.optim.posegraph import PoseGraph, optimize
+    from cusift_tpu_torch.parallel import launch, mesh as mesh_mod
+    from cusift_tpu_torch.parallel.dist_ba import (distributed_bundle_adjust,
+                                                   partition_by_landmark, window_ba_dist)
+    from cusift_tpu_torch.parallel.dist_pg import distributed_pg_optimize, partition_edges
+    from cusift_tpu_torch.utils.collective import psum
+
+    mesh_mod.ensure_group(dev)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"expected a one-rank NCCL group, got {dist.get_backend()} x "
+                             f"{dist.get_world_size()}")
+    mesh = mesh_mod.map_mesh()
+    cfg, win_cfg = BAConfig(**DIST_BA_CFG), BAConfig(**WIN_BA_CFG)
+    prob, _ = ba_problem(seed=3, n_cams=6, n_pts=64, pixel_noise=0.25)
+    single = bundle_adjust(BAProblem(**{k: torch.from_numpy(np.asarray(v)).to(dev)
+                                        for k, v in prob.items()}), cfg)
+    parts1 = partition_by_landmark(prob, 1)
+    wargs = _window_inputs(dev)
+    wt = [torch.from_numpy(np.asarray(a)).to(dev) for a in wargs]
+    ring = pose_ring(n=24, drift=0.03, seed=2)
+    w_edges = np.ones(len(ring["edge_i"]), np.float32)
+    pg_cfg = PoseGraphConfig(max_iters=10, cg_iters=50)
+    keys = ("init_r", "init_t", "edge_i", "edge_j", "meas_r", "meas_t")
+    pg_ref = optimize(PoseGraph(*(torch.from_numpy(np.asarray(ring[k])).to(dev) for k in keys),
+                                torch.from_numpy(w_edges).to(dev)), pg_cfg)
+    win_ref = window_ba(*wt, MatchConfig(), win_cfg)
+
+    def graph(n):
+        p = partition_edges(ring["edge_i"], ring["edge_j"], ring["meas_r"], ring["meas_t"],
+                            w_edges, n)
+        return dict(poses_r=ring["init_r"], poses_t=ring["init_t"], **p)
+
+    g1 = PoseGraph(*(torch.as_tensor(np.asarray(graph(1)[k]), device=dev)
+                     for k in PoseGraph._fields))
+    reset_counts()
+    with _counted_all_reduces() as r_ba:
+        ba = distributed_bundle_adjust(parts1, mesh, cfg, device=dev)
+    with _counted_all_reduces() as r_win:
+        win = window_ba_dist(*wt, mesh, MatchConfig(), win_cfg)
+    with _counted_all_reduces() as r_pg:
+        pg = distributed_pg_optimize(g1, mesh, pg_cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    r_ba, r_win, r_pg = r_ba[0], r_win[0], r_pg[0]
+    if launches["matcher"] == 0:
+        raise AssertionError(f"dist launches {launches}: window_ba_dist's association ran no K2")
+    err1 = _hold_dist("1-rank nccl", ba, single, parts1, win, win_ref, pg, pg_ref)
+
+    # an all-reduce of the camera system's [C, 6] partial sums, timed alone
+    x = torch.randn(5, 6, device=dev)
+    reduce_ms = time_ms(lambda: psum(x, mesh.get_group(mesh_mod.MAP)), "nccl all-reduce [5, 6]",
+                        iters=200)
+    t_solve = wall_ms(lambda: window_ba_dist(*wt, mesh, MatchConfig(), win_cfg), 5)
+    t_single = wall_ms(lambda: window_ba(*wt, MatchConfig(), win_cfg), 5)
+    per_iter = dict(ba=r_ba / cfg.max_iters, window=r_win / win_cfg.max_iters,
+                    graph=r_pg / pg_cfg.max_iters)
+    log("dist", ranks=1, backend="nccl", errors=json.dumps(err1),
+        all_reduces=json.dumps(dict(ba=r_ba, window=r_win, graph=r_pg)),
+        all_reduces_per_lm_iter=json.dumps(per_iter), all_reduce_ms=f"{reduce_ms:.5f}",
+        window_dist_ms=_spread(t_solve), window_single_ms=_spread(t_single),
+        window_n=int(wargs[1].shape[1]), launches=json.dumps(launches),
+        card=json.dumps(smi_line()))
+
+    # the 2- and 4-rank cases on one spawn of 4 gloo ranks sharing the card
+    t0 = time.perf_counter()
+    parts = {n: partition_by_landmark(prob, n) for n in DIST_RANKS}
+    jobs = {n: dict(parts=parts[n], cfg=cfg, window_args=wargs, window_cfg=win_cfg,
+                    pg_jobs=[(graph(n), pg_cfg)]) for n in DIST_RANKS}
+    runs = launch.per_size(launch.run(launch.ba_task, max(DIST_RANKS), args=(jobs,),
+                                      backend="gloo", device="cuda"))
+    secs = time.perf_counter() - t0
+    ranks = {}
+    for n in DIST_RANKS:
+        out = runs[n]
+        a = out[0]
+        for other in out[1:]:
+            if not all(torch.equal(u, v) for u, v in zip(a["ba"], other["ba"])):
+                raise AssertionError(f"{n} gloo ranks: the ranks' BA results differ")
+        err = _hold_dist(f"{n}-rank gloo", a["ba"], single, parts[n], a["window"], win_ref,
+                         a["pg"][0], pg_ref)
+        k = {key: sum(o["launches"][key] for o in out) for key in ("sampler", "matcher")}
+        ranks[n] = dict(errors=err, launches=k)
+        log("dist", ranks=n, backend="gloo", tensors="cuda", staged_through_host=True,
+            errors=json.dumps(err), launches=json.dumps(k), card=json.dumps(smi_line()))
+    log("dist", gloo_spawn_ranks=max(DIST_RANKS), seconds=f"{secs:.3f}")
+    return dict(launches=launches, gloo=ranks, all_reduce_ms=reduce_ms, per_iter=per_iter)
+
+
+def dist_slam_path(dev, slam_stats: dict) -> dict:
+    """Phase 24: Slam(dist_ba=True) on phase 14's orbit, one NCCL rank,
+    after the same untimed warm-up: trajectory within 1e-3 m of phase 14's,
+    the same keyframes, frames/s beside phase 14's."""
+    seq, frames, build = slam_setup()
+    build(dev, dist_ba=True).run(iter(frames[:WARMUP_FRAMES]))
+    slam = build(dev, dist_ba=True)
+    ends = []
+    slam.on_metric = lambda rec: ends.append(time.perf_counter())
+    torch.cuda.synchronize()
+    reset_counts()
+    recs = slam.run(iter(frames))
+    t_end = time.perf_counter()
+    launches = read_counts()
+    fps = (SLAM_FRAMES - 1) / (t_end - ends[0])
+    r, t = slam.trajectory()
+    r14, t14 = slam_stats["trajectory"]
+    dev_m = float(np.abs(t - t14).max())
+    tracked = sum(1 for rec in recs if rec.get("tracked", True))
+    ate = slam.ate(seq.poses_r, seq.poses_t)
+    if (slam._ba_mesh is None or tracked != SLAM_FRAMES or dev_m > 1e-3
+            or slam.state.n_kf_total != slam_stats["keyframes"] or not ate < MAX_ATE
+            or launches["sampler"] == 0 or launches["matcher"] == 0):
+        raise AssertionError(f"dist slam: tracked {tracked}, max |t - phase 14| {dev_m}, "
+                             f"keyframes {slam.state.n_kf_total} vs {slam_stats['keyframes']}, "
+                             f"ATE {ate}, launches {launches}")
+    log("dist_slam", ranks=1, backend="nccl", frames=SLAM_FRAMES, tracked=tracked,
+        keyframes=slam.state.n_kf_total, closures=slam.state.n_closures, ate_m=f"{ate:.6f}",
+        max_t_vs_phase14_m=f"{dev_m:.3g}", fps_after_first=f"{fps:.3f}",
+        phase14_fps=f"{slam_stats['fps']:.3f}", launches=json.dumps(launches),
+        card=json.dumps(smi_line()))
+    return dict(launches=launches, fps=fps)
+
+
+TORCHRUN = (sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1")
+
+
+def _cli(args: list, tag: str, launcher=()) -> tuple[str, float, dict]:
+    """`python -m cusift_tpu_torch.cli ARGS` on the card (under `launcher`,
+    e.g. torchrun, when given): its output, wall seconds and kernel
+    launches (its last line); a non-zero exit raises."""
+    t0 = time.perf_counter()
+    cmd = [*launcher] if launcher else [sys.executable]
+    proc = subprocess.run([*cmd, "-m", "cusift_tpu_torch.cli", *args],
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {tag} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    out = proc.stdout
+    counts = json.loads(out.strip().splitlines()[-1].split("kernel launches: ", 1)[1])
+    return out, secs, counts
+
+
+def _num(out: str, prefix: str, after: str) -> float:
+    line = next(l for l in out.splitlines() if l.startswith(prefix))
+    return float(line.split(after, 1)[1].split()[0])
+
+
+def _path_len(poses_r, poses_t) -> float:
+    from cusift_tpu_torch.data.evaluation import trajectory_path_length
+
+    return float(trajectory_path_length(poses_r, poses_t)[-1])
+
+
+def cli_path() -> dict:
+    """Phase 25: every CLI command on the card as a subprocess at its
+    defaults, held to phases 5, 14, 18, 20-21's bars."""
+    from cusift_tpu_torch.data.synthetic import two_plane_sequence, two_plane_stereo_sequence
+
+    odo_seq = two_plane_sequence(n_frames=8, h=480, w=640, seed=0)
+    st_seq = two_plane_stereo_sequence(n_frames=8, h=240, w=320, seed=0, motion_scale=0.7,
+                                       amplitude=2.0)
+    runs = {}
+
+    def run(tag, args, checks, launcher=()):
+        out, secs, counts = _cli(args, tag, launcher)
+        vals = checks(out)
+        runs[tag] = dict(seconds=secs, launches=counts, **vals)
+        log("cli", command=json.dumps(" ".join(args)), seconds=f"{secs:.3f}",
+            launches=json.dumps(counts), **{k: f"{v:.6g}" for k, v in vals.items()},
+            card=json.dumps(smi_line()))
+
+    def bar(ok, tag, vals):
+        if not ok:
+            raise AssertionError(f"cli {tag}: {vals}")
+        return vals
+
+    run("demo", ["demo"], lambda o: bar(_num(o, "corner error", "truth:") < MAX_CORNER_ERR,
+                                        "demo", dict(corner_px=_num(o, "corner error", "truth:"))))
+    run("slam", ["slam", "--synthetic", "12"],
+        lambda o: bar(_num(o, "ATE RMSE", "ATE RMSE") < MAX_ATE, "slam",
+                      dict(ate_m=_num(o, "ATE RMSE", "ATE RMSE"))))
+    # the documented multi-process form, one rank: torchrun's environment,
+    # NCCL, the distributed window BA; the same trajectory as above
+    run("slam --dist", ["slam", "--synthetic", "12", "--dist"],
+        lambda o: bar("BA sharded over 1 rank(s)" in o
+                      and _num(o, "ATE RMSE", "ATE RMSE") == runs["slam"]["ate_m"],
+                      "slam --dist", dict(ate_m=_num(o, "ATE RMSE", "ATE RMSE"))),
+        launcher=TORCHRUN)
+    odo_path = _path_len(odo_seq.poses_r, odo_seq.poses_t)
+    def odo_checks(o):
+        ok, pairs = (int(v) for v in next(l for l in o.splitlines() if "pairs tracked" in l)
+                     .split("; ")[1].split()[0].split("/"))
+        vals = dict(ate=_num(o, "ATE RMSE (Sim3", "aligned)"), path=odo_path, tracked=ok,
+                    pairs=pairs)
+        return bar(vals["ate"] < VO_ATE_OF_PATH * odo_path and ok >= VO_MIN_TRACKED * pairs,
+                   "odo", vals)
+
+    run("odo", ["odo", "--synthetic", "8", "--loop"], odo_checks)
+    st_path = _path_len(st_seq.poses_r, st_seq.poses_t)
+    run("stereo", ["stereo", "--synthetic", "8"],
+        lambda o: bar(_num(o, "metric ATE RMSE", "RMSE") < STEREO_ATE_OF_PATH * st_path, "stereo",
+                      dict(ate_m=_num(o, "metric ATE RMSE", "RMSE"), path_m=st_path)))
+    run("sfm", ["sfm", "--synthetic", "8"],
+        lambda o: bar(_num(o, "ATE RMSE vs", "truth:") < 0.02, "sfm",
+                      dict(ate_m=_num(o, "ATE RMSE vs", "truth:"))))
+    run("dist", ["dist"],
+        lambda o: bar("1 device(s): gpu" in o and "dist-BA 64 landmarks on 1 dev" in o, "dist",
+                      dict(ba_cost=_num(o, "  dist-BA", "->"))))
+    for tag, r in runs.items():
+        if r["launches"]["sampler"] == 0 or (tag != "dist" and r["launches"]["matcher"] == 0):
+            raise AssertionError(f"cli {tag} launches {r['launches']}")
+    return runs
+
+
+DISK_TUM_FRAMES = 12       # cli.py slam's default synthetic sequence
+DISK_KITTI_FRAMES = 16
+
+
+def disk_path(workdir: str) -> dict:
+    """Phase 26: a TUM folder (8-bit RGB and 16-bit depth PNGs,
+    associations, ground truth) and a KITTI folder (image_0/1, calib,
+    poses) at 480x640, written by the port's PNG writer, through `slam
+    --tum`, `odo --kitti` and `stereo --kitti` with ATE held; the decoder
+    that ran and its decode rate."""
+    import os
+
+    from cusift_tpu_torch.data.disk import write_kitti, write_tum
+    from cusift_tpu_torch.data.synthetic import planar_rgbd_sequence, two_plane_stereo_sequence
+    from cusift_tpu_torch.utils import native_loader
+
+    seq = planar_rgbd_sequence(n_frames=DISK_TUM_FRAMES, h=480, w=640, seed=0, motion_scale=0.8)
+    tum_dir = write_tum(workdir, seq.images, seq.depths, seq.poses_r, seq.poses_t, seq.timestamps)
+    st = two_plane_stereo_sequence(n_frames=DISK_KITTI_FRAMES, h=480, w=640, seed=4,
+                                   motion_scale=0.7, amplitude=2.0, baseline=0.12)
+    kitti_dir, pose_file = write_kitti(workdir, st.images_l, st.intr, st.poses_r, st.poses_t,
+                                       images_r=st.images_r, baseline=st.baseline)
+
+    # decode rate of the RGB files, in this process, with the decoder the CLI takes
+    rgb = sorted(os.path.join(tum_dir, "rgb", f) for f in os.listdir(os.path.join(tum_dir, "rgb")))
+    nbytes_in = sum(os.path.getsize(p) for p in rgb)
+    decoder = native_loader.decoder()
+    rates = {}
+    for name in dict.fromkeys((decoder, "numpy")):      # the CLI's decoder, then numpy's
+        t0 = time.perf_counter()
+        imgs = list(native_loader.FrameStream(rgb, backend=name))
+        secs = time.perf_counter() - t0
+        rates[name] = nbytes_in / 1e6 / secs
+        log("disk", decoder=name, files=len(rgb), file_mb=f"{nbytes_in / 1e6:.3f}",
+            decode_mb_per_s=f"{rates[name]:.3f}",
+            mpix_per_s=f"{sum(i.size for i in imgs) / 1e6 / secs:.3f}",
+            ms_per_frame=f"{secs * 1e3 / len(rgb):.3f}", card=json.dumps(smi_line()))
+
+    runs = {}
+    path = _path_len(st.poses_r, st.poses_t)
+    for tag, args, key, bound in (
+            ("slam --tum", ["slam", "--tum", tum_dir], ("ATE RMSE", "ATE RMSE"), MAX_ATE),
+            ("odo --kitti", ["odo", "--kitti", kitti_dir, "--poses", pose_file],
+             ("ATE RMSE (Sim3", "aligned)"), VO_ATE_OF_PATH * path),
+            ("stereo --kitti", ["stereo", "--kitti", kitti_dir, "--poses", pose_file],
+             ("metric ATE RMSE", "RMSE"), STEREO_ATE_OF_PATH * path)):
+        out, secs, counts = _cli(args, tag)
+        ate = _num(out, *key)
+        ran = next(l for l in out.splitlines() if l.startswith("decoder: ")).split(": ")[1]
+        if not ate < bound or ran != decoder or counts["sampler"] == 0 or counts["matcher"] == 0:
+            raise AssertionError(f"disk {tag}: ATE {ate} (bound {bound}), decoder {ran}, "
+                                 f"launches {counts}")
+        runs[tag] = dict(seconds=secs, launches=counts, ate=ate)
+        log("disk", command=json.dumps(tag), decoder=ran, ate=f"{ate:.6f}",
+            bound=f"{bound:.6f}", seconds=f"{secs:.3f}", launches=json.dumps(counts),
+            card=json.dumps(smi_line()))
+    return dict(runs=runs, decoder=decoder, decode_mb_per_s=rates)
+
+
+def entry_path(dev) -> dict:
+    """Phase 27: `entry.entry()` (the two-view step at 480x640, 1024
+    keypoints) and `entry.dryrun_multichip(1)` on the one-rank NCCL group."""
+    from cusift_tpu_torch import entry
+
+    fn, args = entry.entry()
+    reset_counts()
+    t0 = time.perf_counter()
+    h, inliers, count, matches = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    if (not bool(torch.isfinite(h).all()) or h.device.type != "cuda" or int(count) == 0
+            or launches["sampler"] == 0 or launches["matcher"] == 0):
+        raise AssertionError(f"entry: H {h}, count {count}, launches {launches}")
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = entry.dryrun_multichip(1)
+    dry_s = time.perf_counter() - t0
+    dry = read_counts()
+    if dry["sampler"] == 0 or dry["matcher"] == 0:
+        raise AssertionError(f"dryrun_multichip(1) launches {dry}")
+    log("entry", keypoints=int(count), matches=int(matches), inliers=int(inliers),
+        seconds=f"{secs:.3f}", launches=json.dumps(launches), dryrun=json.dumps(summary),
+        dryrun_s=f"{dry_s:.3f}", dryrun_launches=json.dumps(dry), card=json.dumps(smi_line()))
+    return dict(entry=launches, dryrun=dry)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1868,6 +2286,35 @@ def main() -> int:
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_vo["max_abs_err"])
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_vo["max_abs_err"])
     log("phases 19-22", seconds=f"{time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    dist_res = dist_path(dev)
+    dslam = dist_slam_path(dev, slam_stats)
+    log("phases 23-24", seconds=f"{time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    cli = cli_path()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+    try:
+        disk = disk_path(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    ent = entry_path(dev)
+    log("phases 25-27", seconds=f"{time.perf_counter() - t0:.3f}")
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    new_paths = {
+        key: dict(dist_solvers=dict(one_rank_nccl=dist_res["launches"][key],
+                                    **{f"gloo_{n}_ranks": g["launches"][key]
+                                       for n, g in dist_res["gloo"].items()}),
+                  dist_solvers_path="distributed BA, window BA, pose graph (phase 23)",
+                  dist_slam=dslam["launches"][key],
+                  dist_slam_path="Slam(dist_ba=True), one NCCL rank (phase 24)",
+                  cli={tag: r["launches"][key] for tag, r in cli.items()},
+                  cli_path="python -m cusift_tpu_torch.cli, one process a command (phase 25)",
+                  disk={tag: r["launches"][key] for tag, r in disk["runs"].items()},
+                  disk_path="TUM/KITTI folders through the CLI (phase 26)",
+                  entry=ent["entry"][key], dryrun_multichip_1=ent["dryrun"][key])
+        for key in ("sampler", "matcher")}
     vo_launches = {
         key: dict(pair=mono["launches"][key], run=vo["launches"][key], frames=vo["frames"],
                   per_frame=vo[f"k{i}_per_frame"], per_event=vo[f"k{i}_per_event"],
@@ -1891,7 +2338,8 @@ def main() -> int:
              stereo_launches=stereo_launches["sampler"],
              stereo_path="stereo SLAM (phase 18)", vo_launches=vo_launches["sampler"],
              vo_path="mono VO (phases 19-20)", vo_shape=k1_vo,
-             sfm_launches={k: sfm[k]["sampler"] for k in ("rgbd", "mono")}, **k1),
+             sfm_launches={k: sfm[k]["sampler"] for k in ("rgbd", "mono")},
+             new_path_launches=new_paths["sampler"], **k1),
         dict(name="match_top2", route="cuda", source=src + "matcher.cu",
              replaces=tpu + "matcher.py:43", path="two-view (phase 5)",
              launches=launches["matcher"], rgbd_pair_launches=rgbd["matcher"],
@@ -1900,7 +2348,8 @@ def main() -> int:
              stereo_launches=stereo_launches["matcher"],
              stereo_path="stereo SLAM (phase 18)", vo_launches=vo_launches["matcher"],
              vo_path="mono VO (phases 19-20)", vo_shape=k2_vo,
-             sfm_launches={k: sfm[k]["matcher"] for k in ("rgbd", "mono")}, **k2),
+             sfm_launches={k: sfm[k]["matcher"] for k in ("rgbd", "mono")},
+             new_path_launches=new_paths["matcher"], **k2),
         dict(name="fused_octave", route="cuda", source=src + "octave.cu",
              replaces=tpu + "octave.py:186", path="batched fused (phase 11)",
              launches=batch["octave"], **k3),

@@ -10,8 +10,8 @@ The port imports nothing of `cusift_tpu`: it keeps its own copy of the
 configs (`config.py`), built from the same keyword arguments.
 """
 
-from .config import (BAConfig, MatchConfig, PoseGraphConfig, RansacConfig,
-                     SiftConfig, SlamConfig, VOConfig)
+from .config import (BAConfig, MatchConfig, MeshConfig, PoseGraphConfig,
+                     RansacConfig, SiftConfig, SlamConfig, VOConfig)
 
 __all__ = ["SiftConfig", "MatchConfig", "RansacConfig", "BAConfig",
-           "PoseGraphConfig", "SlamConfig", "VOConfig"]
+           "PoseGraphConfig", "SlamConfig", "VOConfig", "MeshConfig"]

@@ -2,8 +2,8 @@
 
 The port keeps its own copy of the configs its paths read: `SiftConfig`,
 `MatchConfig` and `RansacConfig` (the two-view path), and `BAConfig`,
-`PoseGraphConfig` and `SlamConfig` (the RGB-D SLAM path), and `VOConfig`
-(monocular VO), with every field
+`PoseGraphConfig` and `SlamConfig` (the RGB-D SLAM path), `VOConfig`
+(monocular VO) and `MeshConfig` (the device mesh), with every field
 and default of the reference, so the two packages are built from the same
 keyword arguments and agree on every derived size.  Fields that steer
 only the TPU build (`sampler_group`, `fused_tile_rows`, `conv_backend`,
@@ -260,6 +260,18 @@ class VOConfig:
     sim3_gate: str = "speed"
     sim3_gate_margin: float = 1.15
     sim3_gate_smooth: float = 0.10
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout: "frames" (data parallelism over frames) and
+    "map" (sharding of landmarks and edges).  `parallel/mesh.py:make_mesh`
+    builds the mesh from it over the ranks of a process group: the two
+    sizes, and the names it gives the axes."""
+
+    frames_axis: int = 0                # 0 => use all devices on "frames"
+    map_axis: int = 1
+    axis_names: tuple = ("frames", "map")
 
 
 def replace(cfg, **kw):

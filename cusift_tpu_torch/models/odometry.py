@@ -26,8 +26,12 @@ speed/smoothness gate.  Poses, edges and the correction live on the host.
 Randomness: each step's RANSAC calls get `torch.Generator`s seeded from
 (seed, counter), one counter step per pair (two generators: essential,
 PnP) and per loop verification (three), as the reference splits one
-threefry key per step.  `VOConfig.map_anchor=True` (ROADMAP queue 1,
-item 11) and `dist_ba=True` (item 12) raise `NotImplementedError`.
+threefry key per step.  `dist_ba=True` shards the window BA over the
+"map" axis of every rank of the default process group (creating a
+one-rank group when there is none; see `models/slam.py`).
+`VOConfig.map_anchor=True` raises `NotImplementedError`: the map-anchored
+frontend (`models/monomap.py`) is not ported yet (ROADMAP queue 1,
+item 11).
 """
 
 from __future__ import annotations
@@ -286,13 +290,17 @@ class MonoVO:
                  vo_cfg: VOConfig | None = None,
                  pg_cfg: PoseGraphConfig = PoseGraphConfig(),
                  dist_ba: bool = False, *, device=None):
-        if dist_ba:
-            raise NotImplementedError("MonoVO(dist_ba=True): the distributed window BA "
-                                      "is not ported yet (ROADMAP queue 1, item 12)")
         if vo_cfg is not None and vo_cfg.map_anchor:
             raise NotImplementedError("VOConfig(map_anchor=True): models/monomap.py is "
                                       "not ported yet (ROADMAP queue 1, item 11)")
         self.device = run_device(device, "MonoVO")
+        # the distributed window BA over every rank's "map" axis; the group
+        # comes first, since under torchrun it picks this rank's GPU
+        self._ba_mesh = None
+        if dist_ba:
+            from ..parallel.mesh import ensure_group, map_mesh
+            self.device = ensure_group(self.device)
+            self._ba_mesh = map_mesh()
         self._intr_np = np.asarray(intr, np.float32)
         self.intr = torch.from_numpy(self._intr_np.copy()).to(self.device)
         self.pad_to_tier = pad_to_tier
@@ -753,10 +761,14 @@ class MonoVO:
              np.stack([self.poses_t[i] for i in idxs]).ravel()]).astype(np.float32)
         ).to(self.device)
         ba_cfg = BAConfig(max_iters=4, cg_iters=12, num_fixed_poses=2, huber_delta=4.0)
-        r, t, c0, c1 = window_ba(kd, kv, kp, blob[:w * 9].reshape(w, 3, 3),
-                                 blob[w * 9:].reshape(w, 3), self.intr,
-                                 torch.ones(w, device=self.device), self.match_cfg, ba_cfg,
-                                 anchor=self.ba_anchor)
+        args = (kd, kv, kp, blob[:w * 9].reshape(w, 3, 3), blob[w * 9:].reshape(w, 3),
+                self.intr, torch.ones(w, device=self.device))
+        if self._ba_mesh is not None and self.ba_anchor == "newest":
+            from ..parallel.dist_ba import window_ba_dist
+            r, t, c0, c1 = window_ba_dist(*args, self._ba_mesh, self.match_cfg, ba_cfg)
+        else:
+            # "union" anchoring stays single-device (see models/slam.py)
+            r, t, c0, c1 = window_ba(*args, self.match_cfg, ba_cfg, anchor=self.ba_anchor)
         packed = torch.cat([r.reshape(-1), t.reshape(-1), torch.stack([c0, c1])]
                            ).cpu().numpy()                    # the one fetch
         rs = packed[:w * 9].reshape(w, 3, 3)

@@ -32,8 +32,17 @@ generator, to the bit.
 
 Randomness: each RANSAC call gets its own `torch.Generator`, seeded from
 (seed, counter) as the reference derives one threefry key per call, so
-checkpoints keep the key's meaning.  `dist_ba=True` waits for the
-distributed BA and raises `NotImplementedError`.
+checkpoints keep the key's meaning.
+
+`dist_ba=True` shards the window BA's Schur solve over the "map" axis of a
+mesh of every rank of the default process group
+(`parallel/dist_ba.py:window_ba_dist`; newest anchoring only, "union"
+keeps the single-device solve, as in the reference) and takes the split
+event form.  Without a group it creates a one-rank one (NCCL on the GPU,
+gloo on the CPU), so the distributed code runs even on one device, where
+the reference quietly falls back to the single-device BA; the results are
+equal.  Every rank runs the same frames; the window's inputs are
+broadcast from the first rank before each solve.
 """
 
 from __future__ import annotations
@@ -284,10 +293,14 @@ class Slam:
                  ransac_cfg=RansacConfig(), slam_cfg=SlamConfig(),
                  pg_cfg=PoseGraphConfig(), seed: int = 0,
                  dist_ba: bool = False, *, device=None):
-        if dist_ba:
-            raise NotImplementedError("Slam(dist_ba=True): the distributed window "
-                                      "BA is not ported yet (ROADMAP queue 1, item 12)")
         self.device = run_device(device, "Slam")
+        # the distributed window BA over every rank's "map" axis; the group
+        # comes first, since under torchrun it picks this rank's GPU
+        self._ba_mesh = None
+        if dist_ba:
+            from ..parallel.mesh import ensure_group, map_mesh
+            self.device = ensure_group(self.device)
+            self._ba_mesh = map_mesh()
         self.intr = torch.as_tensor(np.asarray(intr), dtype=torch.float32,
                                     device=self.device)
         self.sift_cfg = sift_cfg
@@ -326,8 +339,10 @@ class Slam:
         # record: keyframe slot, window size, window BA's initial and final cost,
         # closure accepted, host ms of the apply with any graph solve)
         self.on_event = None
+        # the fused event needs the newest-anchored single-device BA
         self._fused_events = (slam_cfg.fused_events
-                              and slam_cfg.local_ba_anchor == "newest")
+                              and slam_cfg.local_ba_anchor == "newest"
+                              and self._ba_mesh is None)
         self._ba_cfg = BAConfig(max_iters=slam_cfg.local_ba_iters,
                                 cg_iters=slam_cfg.local_ba_cg_iters,
                                 num_fixed_poses=2, huber_delta=4.0)
@@ -825,11 +840,17 @@ class Slam:
             return
         s = self.state
         win = slice(lo, s.n_kf)
-        r, t, c0, c1 = window_ba(
-            s.kf_desc[win], s.kf_valid[win], s.kf_pts[win],
-            blob[:w * 9].reshape(w, 3, 3), blob[w * 9:].reshape(w, 3), self.intr,
-            torch.ones(w, dtype=torch.float32, device=self.device),
-            self.match_cfg, self._ba_cfg, anchor=self.cfg.local_ba_anchor)
+        args = (s.kf_desc[win], s.kf_valid[win], s.kf_pts[win],
+                blob[:w * 9].reshape(w, 3, 3), blob[w * 9:].reshape(w, 3), self.intr,
+                torch.ones(w, dtype=torch.float32, device=self.device))
+        if self._ba_mesh is not None and self.cfg.local_ba_anchor == "newest":
+            from ..parallel.dist_ba import window_ba_dist
+            r, t, c0, c1 = window_ba_dist(*args, self._ba_mesh, self.match_cfg, self._ba_cfg)
+        else:
+            # "union" anchoring stays single-device: the distributed solve's
+            # static landmark sharding needs the [W, N] grid layout
+            r, t, c0, c1 = window_ba(*args, self.match_cfg, self._ba_cfg,
+                                     anchor=self.cfg.local_ba_anchor)
         packed = torch.cat([r.reshape(-1), t.reshape(-1), torch.stack([c0, c1])]
                            ).cpu().numpy()                 # the one fetch
         s.kf_pose_r[win] = packed[:w * 9].reshape(w, 3, 3)

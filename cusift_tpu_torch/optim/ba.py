@@ -20,7 +20,14 @@ adds with atomics, so its bits may change from run to run.
 
 The LM and PCG loops are Python loops of fixed length whose accept and
 reject are `torch.where`: nothing in them reads a value back to the host.
-The reference's `axis_name` (the psum of its sharded path) is not ported.
+
+`group` is the twin of the reference's `axis_name`: with a process group,
+p's observations and landmarks are this rank's shard (every landmark's
+observations on one rank), the poses are replicated, and each camera-sized
+partial sum (costs, U, b_c, the Schur products) is all-reduced over the
+group (`utils/collective.py:psum`), so every rank solves the same camera
+system and reaches every collective in step (parallel/dist_ba.py).  With
+`group=None` nothing is reduced and the code is the single-device path.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed
 
 from ..config import BAConfig
 from ..ops.geometry import project
 from ..ops.mat3 import inv3_spd
+from ..utils.collective import psum
 from ..utils.precision import f32_matmuls
 from .lie import hat, se3_exp
 
@@ -125,7 +134,7 @@ def _robust_weights(res: torch.Tensor, w: torch.Tensor, delta: float) -> torch.T
 
 
 @f32_matmuls
-def cost(p: BAProblem, huber_delta: float = 0.0) -> torch.Tensor:
+def cost(p: BAProblem, huber_delta: float = 0.0, group=None) -> torch.Tensor:
     res = _residuals(p)
     res = torch.where((p.w > 0)[:, None], res, torch.zeros_like(res))   # see _mask_dead_obs
     sq = (res ** 2).sum(-1)
@@ -135,7 +144,8 @@ def cost(p: BAProblem, huber_delta: float = 0.0) -> torch.Tensor:
                           2 * huber_delta * nrm - huber_delta ** 2)
     else:
         rho = sq
-    return 0.5 * (p.w * rho).sum()
+    c = 0.5 * (p.w * rho).sum()
+    return psum(c, group) if group is not None else c
 
 
 def _mask_dead_obs(w, res, jc, jp):
@@ -161,8 +171,13 @@ class _Blocks(NamedTuple):
 
 @f32_matmuls
 def build_blocks(p: BAProblem, damping, huber_delta: float,
-                 res=None, jc=None, jp=None) -> _Blocks:
-    """Gauss-Newton blocks with LM damping folded into U and V."""
+                 res=None, jc=None, jp=None, group=None) -> _Blocks:
+    """Gauss-Newton blocks with LM damping folded into U and V.
+
+    With a `group`, U is all-reduced later, so each rank adds its share of
+    the damping: the reduced camera system carries exactly (damping + eps)
+    I whatever the rank count, and the distributed LM steps are the
+    single-device ones."""
     if res is None:
         res, jc, jp = _residuals_and_jacobians(p)
     res, jc, jp = _mask_dead_obs(p.w, res, jc, jp)
@@ -179,7 +194,10 @@ def build_blocks(p: BAProblem, damping, huber_delta: float,
     # LM damping; the small epsilon keeps unobserved blocks invertible
     eye6 = torch.eye(6, dtype=u.dtype, device=u.device)
     eye3 = torch.eye(3, dtype=u.dtype, device=u.device)
-    u = u + (damping + 1e-8) * eye6
+    if group is not None:
+        u = u + (damping + 1e-8) / torch.distributed.get_world_size(group) * eye6
+    else:
+        u = u + (damping + 1e-8) * eye6
     v = v + (damping + 1e-8) * eye3
     # inv3_spd, not the cofactor inv3: a thin-ray landmark block has
     # condition ~1e8+, where the f32 cofactor inverse is wrong by orders
@@ -188,8 +206,12 @@ def build_blocks(p: BAProblem, damping, huber_delta: float,
 
 
 @f32_matmuls
-def schur_matvec(blocks: _Blocks, cam_idx, pt_idx, x, cam_mask, grid: bool = False):
-    """(S x) for camera-delta x [C, 6]; cam_mask [C] fixes gauge poses."""
+def schur_matvec(blocks: _Blocks, cam_idx, pt_idx, x, cam_mask, grid: bool = False,
+                 group=None):
+    """(S x) for camera-delta x [C, 6]; cam_mask [C] fixes gauge poses.
+
+    With a `group`, the camera-sized correction is all-reduced: t_p and the
+    V blocks stay on the rank that holds the landmark."""
     gc, gp = ("cam", "pt") if grid else (None, None)
     x = x * cam_mask[:, None]
     t_p = _seg((blocks.wo.transpose(-1, -2) @ x[cam_idx.long()][..., None])[..., 0],
@@ -197,17 +219,22 @@ def schur_matvec(blocks: _Blocks, cam_idx, pt_idx, x, cam_mask, grid: bool = Fal
     y = (blocks.v_inv @ t_p[..., None])[..., 0]                   # [L, 3]
     corr = _seg((blocks.wo @ y[pt_idx.long()][..., None])[..., 0],
                 cam_idx, x.shape[0], gc)                          # [C, 6]
+    if group is not None:
+        corr = psum(corr, group)
     sx = (blocks.u @ x[..., None])[..., 0] - corr
     return sx * cam_mask[:, None]
 
 
 @f32_matmuls
-def reduced_rhs(blocks: _Blocks, cam_idx, pt_idx, cam_mask, grid: bool = False):
+def reduced_rhs(blocks: _Blocks, cam_idx, pt_idx, cam_mask, grid: bool = False,
+                group=None):
     """b~_c = b_c - W V^-1 b_p (the Schur-reduced right-hand side)."""
     gc = "cam" if grid else None
     y = (blocks.v_inv @ blocks.b_p[..., None])[..., 0]            # [L, 3]
     corr = _seg((blocks.wo @ y[pt_idx.long()][..., None])[..., 0],
                 cam_idx, blocks.b_c.shape[0], gc)
+    if group is not None:
+        corr = psum(corr, group)
     return (blocks.b_c - corr) * cam_mask[:, None]
 
 
@@ -302,11 +329,18 @@ def _dense_schur_solve(p: BAProblem, blocks: _Blocks, b, cam_mask,
 
 
 @f32_matmuls
-def solve_normal_equations(p: BAProblem, damping, cfg: BAConfig):
-    """One damped GN step: returns (delta_c [C, 6], delta_p [L, 3])."""
+def solve_normal_equations(p: BAProblem, damping, cfg: BAConfig, group=None):
+    """One damped GN step: returns (delta_c [C, 6], delta_p [L, 3]).
+
+    With a `group`, U and b_c are all-reduced, every rank solves the same
+    camera system by PCG (the dense solver is single-device only) and
+    back-substitutes its own landmarks."""
     c = p.poses_r.shape[0]
     res, jc, jp = _mask_dead_obs(p.w, *_residuals_and_jacobians(p))
-    blocks = build_blocks(p, damping, cfg.huber_delta, res=res, jc=jc, jp=jp)
+    blocks = build_blocks(p, damping, cfg.huber_delta, res=res, jc=jc, jp=jp,
+                          group=group)
+    if group is not None:
+        blocks = blocks._replace(u=psum(blocks.u, group), b_c=psum(blocks.b_c, group))
     cam_mask = torch.ones(c, dtype=p.poses_t.dtype, device=p.poses_t.device)
     nfix = max(cfg.num_fixed_poses, 1 if cfg.fix_first_pose else 0)
     if nfix > 0:
@@ -317,12 +351,13 @@ def solve_normal_equations(p: BAProblem, damping, cfg: BAConfig):
     def precond(r):
         return (u_inv @ r[..., None])[..., 0] * cam_mask[:, None]
 
-    b = reduced_rhs(blocks, p.cam_idx, p.pt_idx, cam_mask, p.grid)
-    if cfg.solver == "dense":
+    b = reduced_rhs(blocks, p.cam_idx, p.pt_idx, cam_mask, p.grid, group)
+    if cfg.solver == "dense" and group is None:
         dc = _dense_schur_solve(p, blocks, b, cam_mask, res, jc,
                                 cfg.huber_delta, damping)
     else:
-        dc = pcg(lambda x: schur_matvec(blocks, p.cam_idx, p.pt_idx, x, cam_mask, p.grid),
+        dc = pcg(lambda x: schur_matvec(blocks, p.cam_idx, p.pt_idx, x, cam_mask, p.grid,
+                                        group),
                  b, precond, cfg.cg_iters, cfg.cg_tol)
 
     # back-substitute landmarks: dp = V^-1 (b_p - W^T dc)
@@ -343,16 +378,20 @@ def apply_step(p: BAProblem, dc, dp) -> BAProblem:
 
 
 @f32_matmuls
-def lm_loop(p: BAProblem, cfg: BAConfig) -> BAResult:
-    """LM with a static iteration count, accept/reject by `torch.where`."""
-    c0 = cost(p, cfg.huber_delta)
+def lm_loop(p: BAProblem, cfg: BAConfig, group=None) -> BAResult:
+    """LM with a static iteration count, accept/reject by `torch.where`.
+
+    Runs alone (group=None) or on every rank of `group` with sharded
+    observations and landmarks and replicated poses; the accept decision
+    reads the all-reduced cost, so the ranks stay in step."""
+    c0 = cost(p, cfg.huber_delta, group)
     lam = torch.tensor(cfg.init_damping, dtype=torch.float32, device=c0.device)
     cur = c0
     its = torch.zeros((), dtype=torch.int64, device=c0.device)
     for _ in range(cfg.max_iters):
-        dc, dp = solve_normal_equations(p, lam, cfg)
+        dc, dp = solve_normal_equations(p, lam, cfg, group)
         cand = apply_step(p, dc, dp)
-        cnew = cost(cand, cfg.huber_delta)
+        cnew = cost(cand, cfg.huber_delta, group)
         accept = torch.isfinite(cnew) & (cnew < cur)
         p = p._replace(**{f: torch.where(accept, getattr(cand, f), getattr(p, f))
                           for f in ("poses_r", "poses_t", "points")})

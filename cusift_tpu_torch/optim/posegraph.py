@@ -25,7 +25,11 @@ neither raises nor waits for the device: a factor that fails is NaN, as
 the reference's is, and the step is then rejected by the isfinite accept.
 
 The loops are Python loops of fixed length with `torch.where` accept and
-reject.  The reference's `axis_name` (the sharded path) is not ported.
+reject.  `group` is the twin of the reference's `axis_name`: with a process
+group, g's edges are this rank's shard and the poses are replicated; the
+costs and the CG's [N, 6] vectors (J^T r, J^T J x) are all-reduced over the
+group, so every rank runs the same CG (the dense solver is single-device
+only; parallel/dist_pg.py).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 import torch.autograd.forward_ad as fwad
 
 from ..config import PoseGraphConfig
+from ..utils.collective import psum
 from ..utils.precision import f32_matmuls
 from . import robust
 from .lie import compose, hat, inverse, se3_exp, se3_log
@@ -78,9 +83,11 @@ def _residuals(g: PoseGraph) -> torch.Tensor:
 
 
 @f32_matmuls
-def cost(g: PoseGraph) -> torch.Tensor:
-    """Total weighted cost."""
-    return 0.5 * (_residuals(g) ** 2).sum()
+def cost(g: PoseGraph, group=None) -> torch.Tensor:
+    """Total weighted cost; with a `group`, g's edges are this rank's shard
+    and the sum is all-reduced."""
+    c = 0.5 * (_residuals(g) ** 2).sum()
+    return psum(c, group) if group is not None else c
 
 
 def _edge_norms(g: PoseGraph) -> torch.Tensor:
@@ -89,12 +96,13 @@ def _edge_norms(g: PoseGraph) -> torch.Tensor:
     return torch.linalg.vector_norm(_residuals(g), dim=-1) / g.weight.clamp(min=1e-12)
 
 
-def _robust_cost(g: PoseGraph, delta: float, kernel: str) -> torch.Tensor:
+def _robust_cost(g: PoseGraph, delta: float, kernel: str, group=None) -> torch.Tensor:
     """Robust cost on per-edge residual norms (delta <= 0: plain L2)."""
     if delta <= 0:
-        return cost(g)
+        return cost(g, group)
     # information-weighted robust cost: sum_e w_e^2 rho(||r_e||_unweighted)
-    return (g.weight ** 2 * robust.rho(_edge_norms(g), delta, kernel)).sum()
+    c = (g.weight ** 2 * robust.rho(_edge_norms(g), delta, kernel)).sum()
+    return psum(c, group) if group is not None else c
 
 
 def _adjoint(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -164,8 +172,11 @@ def _cg(matvec, b, iters: int, tol: float):
 
 
 @f32_matmuls
-def lm_loop(g: PoseGraph, cfg: PoseGraphConfig) -> PoseGraphResult:
-    """LM on the pose graph; gauge fixed by freezing pose 0 (optional)."""
+def lm_loop(g: PoseGraph, cfg: PoseGraphConfig, group=None) -> PoseGraphResult:
+    """LM on the pose graph; gauge fixed by freezing pose 0 (optional).
+
+    Runs alone (group=None) or on every rank of `group` with the edges
+    sharded and the poses replicated."""
     n = g.poses_r.shape[0]
     mask = g.poses_t.new_ones((n, 6))
     if cfg.fix_first_pose:
@@ -175,7 +186,14 @@ def lm_loop(g: PoseGraph, cfg: PoseGraphConfig) -> PoseGraphResult:
     if cfg.solver not in ("cg", "dense"):
         raise ValueError(f"unknown pose-graph solver {cfg.solver!r}")
 
-    c0 = _robust_cost(g, delta, cfg.robust_kernel)
+    # the dense normal equations are single-device only: with sharded
+    # edges their assembly would need an O(N^2) all-reduce
+    dense = cfg.solver == "dense" and group is None
+
+    def psum_(x):
+        return psum(x, group) if group is not None else x
+
+    c0 = _robust_cost(g, delta, cfg.robust_kernel, group)
     lam = torch.tensor(cfg.init_damping, dtype=torch.float32, device=c0.device)
     cur = c0
     one = torch.ones((), dtype=c0.dtype, device=c0.device)
@@ -187,7 +205,7 @@ def lm_loop(g: PoseGraph, cfg: PoseGraphConfig) -> PoseGraphResult:
             g_it = g._replace(weight=g.weight * w_rob)
         else:
             g_it = g
-        if cfg.solver == "dense":
+        if dense:
             h, b = _assemble_dense(g_it)
             # free dofs: not gauge-fixed AND constrained (dead ring slots and
             # weight-0 edges leave zero diagonal blocks); fixed and dead
@@ -210,15 +228,15 @@ def lm_loop(g: PoseGraph, cfg: PoseGraphConfig) -> PoseGraphResult:
 
             def normal_mv(x):
                 x = x * mask
-                jtjx = scatter((hblk @ x[ends].reshape(-1, 12, 1))[..., 0])
+                jtjx = psum_(scatter((hblk @ x[ends].reshape(-1, 12, 1))[..., 0]))
                 return (jtjx + lam * x) * mask
 
-            b = -scatter((jac.transpose(1, 2) @ res0[..., None])[..., 0]) * mask
+            b = -psum_(scatter((jac.transpose(1, 2) @ res0[..., None])[..., 0])) * mask
             dx = _cg(normal_mv, b, cfg.cg_iters, cfg.cg_tol) * mask
         dr, dt = se3_exp(dx)
         cand = g._replace(poses_r=dr @ g.poses_r,
                           poses_t=(dr @ g.poses_t[..., None])[..., 0] + dt)
-        cnew = _robust_cost(cand, delta, cfg.robust_kernel)
+        cnew = _robust_cost(cand, delta, cfg.robust_kernel, group)
         accept = torch.isfinite(cnew) & (cnew < cur)
         g = g._replace(poses_r=torch.where(accept, cand.poses_r, g.poses_r),
                        poses_t=torch.where(accept, cand.poses_t, g.poses_t))

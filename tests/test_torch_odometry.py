@@ -63,8 +63,15 @@ def test_entry_points_raise_what_is_not_ported():
     intr = np.array([200.0, 200.0, 160.0, 120.0], np.float32)
     with pytest.raises(NotImplementedError, match="item 11"):
         MonoVO(intr, vo_cfg=VOConfig(map_anchor=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MonoVO(intr, dist_ba=True, device="cpu")
+    # dist_ba is ported: without a process group it makes a one-rank one
+    import torch.distributed as dist
+    try:
+        vo = MonoVO(intr, dist_ba=True, device="cpu")
+        assert vo._ba_mesh is not None and vo._ba_mesh.shape == (1, 1)
+        assert dist.get_backend() == "gloo"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ---- the reference tests' bars on the port ----

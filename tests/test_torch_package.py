@@ -4,8 +4,9 @@
   `cusift_tpu` (checked in a fresh interpreter that runs a tiny CPU
   match_pair, RGB-D pair alignment, SLAM run (sequential and chunked),
   chunked stereo SLAM run, direct pyramid, a 4-frame MonoVO run with
-  keyframes, both SfM builders, essential, PnP and Sim(3) solves, and in
-  one that imports
+  keyframes, both SfM builders, essential, PnP and Sim(3) solves, imports
+  the CLI, the entry points, the distribution, data and I/O modules and
+  spawns a rank (whose modules are checked too), and in one that imports
   `chip_smoke` and every module of the port): the machine with the GPU has
   neither jax nor cv2.
 * `utils/timers.py:Timer` takes one sample a call, and a result on the
@@ -110,6 +111,14 @@ g = Sim3Graph(torch.eye(3).repeat(2, 1, 1), z(2, 3), torch.ones(2), torch.tensor
               torch.tensor([1]), torch.eye(3)[None], torch.ones(1, 3), torch.ones(1),
               torch.ones(1))
 assert torch.isfinite(optimize(g).cost)
+from cusift_tpu_torch import cli, entry
+from cusift_tpu_torch.data import disk, kitti, tum
+from cusift_tpu_torch.parallel import dist_ba, dist_pg, launch, mesh, sharded
+from cusift_tpu_torch.utils import imgcodec, logging, native_loader, viz
+child = launch.run(launch.modules_task, 1, device="cpu", timeout_s=60)[0]
+bad_child = sorted(m for m in child if m in ("jax", "jaxlib", "cv2", "cusift_tpu")
+                   or m.startswith("cusift_tpu."))
+assert "cusift_tpu_torch.parallel.launch" in child and not bad_child, bad_child
 """ + _CHECK
 
 # chip_smoke.py imports the port inside its phases: import it, every
@@ -128,7 +137,10 @@ for mod in ("config", "optim.lie", "optim.robust", "optim.ba", "optim.posegraph"
             "ops.geometry", "ops.mat3", "ops.ransac", "models.twoview", "data.synthetic",
             "data.evaluation", "models.local_ba", "models.evict", "utils.pipeline",
             "models.slam", "ops.stereo", "models.stereo", "utils.timers", "ops.essential",
-            "ops.pnp", "optim.sim3graph", "utils.image", "models.odometry", "models.sfm"):
+            "ops.pnp", "optim.sim3graph", "utils.image", "models.odometry", "models.sfm",
+            "cli", "entry", "parallel.mesh", "parallel.sharded", "parallel.dist_ba",
+            "parallel.dist_pg", "parallel.launch", "data.tum", "data.kitti", "data.disk",
+            "utils.logging", "utils.viz", "utils.native_loader", "utils.imgcodec"):
     assert "cusift_tpu_torch." + mod in names, mod
 """ + _CHECK
 

@@ -11,8 +11,9 @@ bounds of tests/test_slam.py, and its parts against the JAX package.
   exact to 1e-6, checkpoint/resume, blackout recovery, and tracking that
   continues once eviction fires.
 * The package's rules: numpy frames go to the GPU unless device="cpu" is
-  passed (without a GPU that is an error), and the option that waits for
-  later work (dist_ba=True) raises NotImplementedError.
+  passed (without a GPU that is an error); dist_ba=True, once left for
+  later work, now builds its mesh (a one-rank gloo group on the CPU) and
+  takes the split events (its runs: tests/test_torch_slam_dist.py).
 """
 
 import jax.numpy as jnp
@@ -258,8 +259,16 @@ def test_numpy_frames_without_gpu_raise(monkeypatch, seq):
 
 
 def test_unported_options_raise(seq):
-    with pytest.raises(NotImplementedError, match="dist_ba"):
-        Slam(seq.intr, sift_cfg=SIFT, dist_ba=True, device="cpu")
+    """dist_ba no longer raises: it builds a 1 x 1 mesh over a one-rank gloo
+    group and turns the fused events off (the reference's wiring)."""
+    import torch.distributed as dist
+    try:
+        slam = Slam(seq.intr, sift_cfg=SIFT, dist_ba=True, device="cpu")
+        assert slam._ba_mesh.shape == (1, 1) and not slam._fused_events
+        assert dist.get_backend() == "gloo"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_anchor_knob_threads_to_window_ba(monkeypatch):

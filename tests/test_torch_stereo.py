@@ -15,8 +15,8 @@ tests/test_stereo.py.
   (tests/test_stereo.py:68-86); chunk 3 against chunk 1, both ATE < 0.05
   (tests/test_stereo.py:125-146); a stereo chunk step's rows equal the
   sequential steps' bit for bit.
-* `dist_ba=True` still raises NotImplementedError, and a baseline <= 0 is
-  refused.
+* `dist_ba=True` builds its mesh (a one-rank gloo group on the CPU), and a
+  baseline <= 0 is refused.
 """
 
 import jax.numpy as jnp
@@ -152,8 +152,15 @@ def test_stereo_chunk_rows_equal_frame_steps(seq):
 
 
 def test_stereo_dist_ba_raises(seq):
-    with pytest.raises(NotImplementedError, match="dist_ba"):
-        StereoSlam(seq.intr, seq.baseline, sift_cfg=SIFT, dist_ba=True, device="cpu")
+    """dist_ba no longer raises: StereoSlam inherits Slam's distributed
+    window BA over a mesh of the group's ranks."""
+    import torch.distributed as dist
+    try:
+        slam = StereoSlam(seq.intr, seq.baseline, sift_cfg=SIFT, dist_ba=True, device="cpu")
+        assert slam._ba_mesh.shape == (1, 1) and not slam._fused_events
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("baseline", [0.0, -0.12])
