@@ -4,8 +4,9 @@
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device: card name, and nvidia-smi's name and power limit;
-  2. build: compile kernels K1-K6 from cusift_tpu_torch/csrc with nvcc for
-     sm_90a (one nvcc per source, all started together);
+  2. build: compile kernels K1-K6 and the segment sum from
+     cusift_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source, all
+     started together);
   3. K1 against its plain torch version at the octave-0 shape of the bench
      config (L=3, 960x1280, N=3840, S=144, random points within 25 px of
      each slot's centre), timed beside its library yardstick (one
@@ -96,6 +97,8 @@ Phases (one line each; any failure raises and exits non-zero):
  21. SfM: `reconstruct_rgbd` as `cli.py sfm` calls it and
      `reconstruct_mono`, each on 10 frames at 480x640 with 2048 keypoints,
      at tests/test_sfm.py's bars (the mono structure printed, not held);
+     `reconstruct_mono` runs twice, and the two agree bit for bit (tracks,
+     observations, poses, points: the segment sums are deterministic);
  22. K1 and K2 at the VO path's inputs (a frame's 10 K1 calls, K2's first
      pair-step and loop-verification calls), as phase 15;
  23. the distributed solvers on a one-rank NCCL group on the card:
@@ -120,10 +123,28 @@ Phases (one line each; any failure raises and exits non-zero):
      frames, calib, poses) written by the port's PNG writer, through
      `slam --tum`, `odo --kitti` and `stereo --kitti` at those bars; the
      decoder that ran and its decode rate;
- 27. `entry.entry()` (the two-view step) and `entry.dryrun_multichip(1)`.
+ 27. `entry.entry()` (the two-view step) and `entry.dryrun_multichip(1)`;
+ 28. the map-anchored mono path: `MonoVO(vo_cfg=VOConfig(map_anchor=True))`
+     on phase 20's 150 left images with phase 20's VOConfig and ba_window 4
+     and the map at its defaults (8192 landmarks, 512 inserts a keyframe,
+     8 observations to mature; `cli.py odo --map-anchor`), after an
+     untimed warm-up: >= 90% of frames tracked by the pair or the map,
+     Sim(3)-aligned ATE < 15% of the path, keyframe inserts, a map with
+     valid landmarks; frames/s, ms a frame, ms of `localize_step` and
+     `insert_step`, the share the map localised, the median anchors and
+     map/chain scale, K1, K2 and segment-sum launches a frame; then K2 at
+     `localize_step`'s first real input (2048 x 8192, the `active` mask)
+     against its plain version, timed;
+ 29. the segment-sum kernel at the inputs phases 20, 21 and 28 gave it
+     (the Sim(3) CG's scatter, SfM BA's camera and landmark sums, the
+     landmark refinement's): equal bit for bit to its plain version, the
+     CPU's `index_add_`, on the same inputs, and within 1e-4 of each
+     segment's sum of |x| of `index_add_` on the card (atomics), timed
+     beside it and beside `index_put_(accumulate=True)`.
 The line before the last is a JSON object with each kernel's launches on
-its path (K1's and K2's on phases 23-27 under `new_path_launches`), its
-error against the plain version, its times and its bound;
+its path (K1's and K2's on phases 23-27 under `new_path_launches`, on
+phase 28 under `map_launches`), its error against the plain version, its
+times and its bound;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device it
 exits non-zero and prints no result.
 """
@@ -267,11 +288,11 @@ POLAR_FLOPS = 30
 
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from cusift_tpu_torch.kernels import matcher, octave, sampler
+    from cusift_tpu_torch.kernels import matcher, octave, sampler, segment
 
     sampler.launches = sampler.sep_launches = 0
     sampler.ori_hist_launches = sampler.desc_raw_launches = 0
-    matcher.launches = octave.launches = 0
+    matcher.launches = octave.launches = segment.launches = 0
 
 
 def read_counts() -> dict:
@@ -1410,6 +1431,33 @@ def stereo_slam_path(dev, seq) -> dict:
     return runs
 
 
+@contextlib.contextmanager
+def first_segment_calls(tag: str, limit: int = 4, live: bool = False):
+    """Within the block, keep the first call of `segment.segment_sum` of
+    each (row shape, segment count), up to `limit`, as (x clone, plan)
+    under "tag i": the inputs a path gives the segment-sum kernel.  With
+    `live`, a call whose x is all zero is replaced by the next one of its
+    kind (a host read a call until one is not)."""
+    from cusift_tpu_torch.kernels import segment
+
+    calls, names, done, fn = {}, {}, set(), segment.segment_sum
+
+    def wrapper(x, p):
+        key = (tuple(x.shape[1:]), p.n)
+        if key not in done and (key in names or len(names) < limit):
+            names.setdefault(key, f"{tag} {len(names)}")
+            calls[names[key]] = (x.clone(), p)
+            if not live or bool(x.any()):
+                done.add(key)
+        return fn(x, p)
+
+    segment.segment_sum = wrapper
+    try:
+        yield calls
+    finally:
+        segment.segment_sum = fn
+
+
 def check_sampler_slam(dev, calls, path: str = "slam") -> dict:
     """K1 at the inputs one frame's extraction on the SLAM path (or the
     VO path, `path="vo"`) gave it (480x640 levels, no upscale, 1024 slots
@@ -1691,7 +1739,8 @@ def mono_vo_run(dev, seq, n_frames: int) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t_start = time.perf_counter()
-    with first_calls(matcher, "top2", lambda: "loop" if in_loop[0] else "pair") as k2_in:
+    with (first_calls(matcher, "top2", lambda: "loop" if in_loop[0] else "pair") as k2_in,
+          first_segment_calls("vo sim3", 1) as seg_in):
         er, et = vo.run(iter(frames))
     t_end = time.perf_counter()
     launches = read_counts()
@@ -1719,7 +1768,7 @@ def mono_vo_run(dev, seq, n_frames: int) -> dict:
                k2_per_frame=(launches["matcher"] - st["event_k2"]) / (n_frames - 1),
                k1_per_event=st["event_k1"] / max(n_ev, 1),
                k2_per_event=st["event_k2"] / max(n_ev, 1),
-               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, segment_in=seg_in,
                bars=(tracked >= VO_MIN_TRACKED * len(vo.stats) and vo.n_kf >= VO_MIN_KF
                      and vo.n_closures >= 1 and ate < VO_ATE_OF_PATH * path and not others
                      and launches["sampler"] > 0 and launches["matcher"] > 0))
@@ -1798,9 +1847,22 @@ def sfm_path(dev) -> dict:
     mseq = two_plane_sequence(10, 480, 640, **SFM_MONO_SCENE)
     reset_counts()
     t0 = time.perf_counter()
-    mrec = reconstruct_mono(mseq.images, mseq.intr, sift_cfg=cfg, device=dev)
+    with first_segment_calls("sfm mono BA") as seg_in:
+        mrec = reconstruct_mono(mseq.images, mseq.intr, sift_cfg=cfg, device=dev)
     mono_s = time.perf_counter() - t0
     mono_launches = read_counts()
+    # the same call again: deterministic segment sums give the same bits
+    t0 = time.perf_counter()
+    again = reconstruct_mono(mseq.images, mseq.intr, sift_cfg=cfg, device=dev)
+    rerun_s = time.perf_counter() - t0
+    same = (again.n_tracks == mrec.n_tracks and again.n_obs == mrec.n_obs
+            and all(np.array_equal(getattr(again, k), getattr(mrec, k))
+                    for k in ("poses_r", "poses_t", "points"))
+            and all(torch.equal(a, b) for a, b in zip(again.ba, mrec.ba)))
+    if not same:
+        raise AssertionError(f"sfm mono rerun: tracks {mrec.n_tracks} -> {again.n_tracks}, "
+                             f"obs {mrec.n_obs} -> {again.n_obs}, cost {float(mrec.ba.cost)} "
+                             f"-> {float(again.ba.cost)}")
     path = float(trajectory_path_length(mseq.poses_r, mseq.poses_t)[-1])
     mate = ate_rmse(mrec.poses_r, mrec.poses_t, mseq.poses_r, mseq.poses_t, with_scale=True)
     # structure numbers (tests/test_sfm.py's, failing in the reference too)
@@ -1816,13 +1878,15 @@ def sfm_path(dev) -> dict:
     log("sfm", kind="mono", image="x".join(map(str, mseq.images.shape[-2:])), frames=10, tracks=mrec.n_tracks, obs=mrec.n_obs,
         ba_cost=f"{float(mrec.ba.initial_cost):.6g}->{float(mrec.ba.cost):.6g}",
         ate=f"{mate:.6f}", ate_of_path=f"{mate / path:.5f}", in_front_of_init=f"{front:.4f}",
-        far_near_ratio=f"{ratio:.4f}", seconds=f"{mono_s:.3f}",
-        launches=json.dumps(mono_launches), card=json.dumps(smi_line()))
+        far_near_ratio=f"{ratio:.4f}", seconds=f"{mono_s:.3f}", rerun_bit_equal=same,
+        rerun_seconds=f"{rerun_s:.3f}", launches=json.dumps(mono_launches),
+        card=json.dumps(smi_line()))
     others = sum(rgbd_launches[k] + mono_launches[k]
                  for k in ("octave", "ori_hist", "desc_raw", "sep"))
-    if others or not all(l["sampler"] and l["matcher"] for l in (rgbd_launches, mono_launches)):
+    if others or not all(l["sampler"] and l["matcher"] and l["segment"]
+                         for l in (rgbd_launches, mono_launches)):
         raise AssertionError(f"sfm launches {rgbd_launches} {mono_launches}")
-    return dict(rgbd=rgbd_launches, mono=mono_launches)
+    return dict(rgbd=rgbd_launches, mono=mono_launches, segment_in=seg_in)
 
 
 def check_matcher_vo(dev, calls) -> dict:
@@ -1836,6 +1900,195 @@ def check_matcher_vo(dev, calls) -> dict:
         out[kind] = dict(max_abs_err=err, valid_b=int(tv.sum()),
                          **_k2_timed(f"k2 vo {kind}", ta, tb, tv))
     return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), **out)
+
+
+# ---------- phases 28-29: the map-anchored mono path, the segment sums ----------
+
+def _map_timers(vo) -> tuple[dict, contextlib.AbstractContextManager]:
+    """Host ms of each `localize_step` and `insert_step` call of a MonoVO
+    (the module functions it calls, wrapped; the device is synchronised
+    around each, so a call's ms is its device work and its dispatch), and
+    a flag that says a call of `localize_step` is under way."""
+    from cusift_tpu_torch.models import odometry
+
+    st = dict(localize_ms=[], insert_ms=[], in_localize=[False], frame_end=[])
+
+    def timed(fn, key):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st["in_localize"][0] = key == "localize_ms"
+            try:
+                r = fn(*a, **k)
+            finally:
+                st["in_localize"][0] = False
+            torch.cuda.synchronize()
+            st[key].append((time.perf_counter() - t0) * 1e3)
+            return r
+        return call
+
+    @contextlib.contextmanager
+    def patched():
+        loc, ins = odometry.localize_step, odometry.insert_step
+        odometry.localize_step = timed(loc, "localize_ms")
+        odometry.insert_step = timed(ins, "insert_ms")
+        try:
+            yield
+        finally:
+            odometry.localize_step, odometry.insert_step = loc, ins
+
+    vo.on_metric = lambda stat: st["frame_end"].append(time.perf_counter())
+    return st, patched()
+
+
+def map_vo_path(dev, seq, chain: dict) -> dict:
+    """Phase 28: MonoVO(map_anchor=True) over the scene's 150 left images
+    at full width (phase 20's VOConfig and ba_window 4, the map at its
+    defaults), after an untimed warm-up that keeps K2's first
+    `localize_step` input with live landmarks; `chain` is phase 20's run."""
+    from cusift_tpu_torch import SiftConfig, VOConfig
+    from cusift_tpu_torch.data.evaluation import ate_rmse, trajectory_path_length
+    from cusift_tpu_torch.kernels import matcher
+    from cusift_tpu_torch.models.odometry import MonoVO
+
+    cfg = SiftConfig(**STEREO_SIFT)
+    vo_cfg = VOConfig(**VO_CFG, map_anchor=True)
+    n_frames = STEREO_FRAMES
+    frames = seq.images_l[:n_frames]
+
+    def build():
+        return MonoVO(seq.intr, sift_cfg=cfg, vo_cfg=vo_cfg, ba_window=4, device=dev)
+
+    t0 = time.perf_counter()
+    warm = build()
+    wst, patched = _map_timers(warm)
+    k2_in, top2 = {}, matcher.top2
+
+    def keep_first(ta, tb, tv):
+        if wst["in_localize"][0] and "map" not in k2_in and bool(tv.any()):
+            k2_in["map"] = (ta.clone(), tb.clone(), tv.clone())
+        return top2(ta, tb, tv)
+
+    matcher.top2 = keep_first
+    try:
+        with patched, first_segment_calls("map refine", 2, live=True) as seg_in:
+            warm.run(iter(frames[:VO_WARMUP_FRAMES]))
+    finally:
+        matcher.top2 = top2
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    if "map" not in k2_in:
+        raise AssertionError("map VO warm-up: no localize_step match against live landmarks")
+
+    vo = build()
+    st, patched = _map_timers(vo)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t_start = time.perf_counter()
+    with patched:
+        er, et = vo.run(iter(frames))
+    t_end = time.perf_counter()
+    launches = read_counts()
+    gt_r, gt_t = seq.poses_r[:n_frames], seq.poses_t[:n_frames]
+    path = float(trajectory_path_length(gt_r, gt_t)[-1])
+    ate = ate_rmse(er, et, gt_r, gt_t, with_scale=True)
+    stats = vo.stats
+    tracked = sum(1 for x in stats if x["ok"] or x["pnp_ok"])
+    localised = sum(1 for x in stats if x["pnp_ok"])
+    anchored = [x for x in stats if x["map_n_anchor"] > 0]
+    s_ratio = [x["map_s_med"] / x["scale"] for x in anchored
+               if np.isfinite(x["map_s_med"]) and x["scale"] > 0]
+    marks = st["frame_end"]
+    frame_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    n_map = int(vo._lmap.valid.sum())
+    others = sum(launches[k] for k in ("octave", "ori_hist", "desc_raw", "sep"))
+    out = dict(frames=n_frames, tracked=tracked, localised=localised, ate=ate, path=path,
+               fps=(n_frames - 1) / (t_end - t_start), frame_ms=frame_ms,
+               localize_ms=st["localize_ms"], insert_ms=st["insert_ms"], launches=launches,
+               keyframes=vo.n_kf_total, closures=vo.n_closures, landmarks=n_map,
+               warmup_s=warmup_s, k2_in=k2_in, segment_in=seg_in,
+               k1_per_frame=launches["sampler"] / n_frames,
+               k2_per_frame=launches["matcher"] / (n_frames - 1),
+               segment_per_frame=launches["segment"] / (n_frames - 1),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    log("map_vo", image="x".join(map(str, frames.shape[-2:])), frames=n_frames,
+        warmup_s=f"{warmup_s:.3f}", tracked=tracked, pairs=len(stats),
+        pair_ok=sum(1 for x in stats if x["ok"]), map_localised=localised,
+        map_share=f"{localised / len(stats):.4f}", keyframes=vo.n_kf_total, ring=vo.n_kf,
+        closures=vo.n_closures, gate_rejects=vo.n_gate_rejects, landmarks=n_map,
+        median_n_anchor=(statistics.median(x["map_n_anchor"] for x in stats)),
+        median_s_med_over_scale=(f"{statistics.median(s_ratio):.4f}" if s_ratio else "none"),
+        ate=f"{ate:.6f}", path=f"{path:.4f}", ate_of_path=f"{ate / path:.5f}",
+        chain_ate_of_path=f"{chain['ate'] / chain['path']:.5f}", fps=f"{out['fps']:.3f}",
+        chain_fps=f"{chain['fps']:.3f}", frame_ms=_spread(frame_ms),
+        chain_frame_ms=_spread(chain["frame_ms"]), localize_ms=_spread(st["localize_ms"]),
+        insert_ms=_spread(st["insert_ms"]), inserts=len(st["insert_ms"]),
+        k1_per_frame=f"{out['k1_per_frame']:.2f}", k2_per_pair=f"{out['k2_per_frame']:.2f}",
+        chain_k2_per_pair=f"{chain['k2_per_frame']:.2f}",
+        segment_per_pair=f"{out['segment_per_frame']:.2f}",
+        peak_mem_gb=f"{out['peak_mem_gb']:.3f}", chain_peak_mem_gb=f"{chain['peak_mem_gb']:.3f}",
+        launches=json.dumps(launches), card=json.dumps(smi_line()))
+    if not (tracked >= VO_MIN_TRACKED * len(stats) and ate < VO_ATE_OF_PATH * path
+            and st["insert_ms"] and n_map > 0 and not others and launches["sampler"] > 0
+            and launches["matcher"] > 0 and launches["segment"] > 0):
+        raise AssertionError(f"map VO: tracked {tracked}/{len(stats)}, localised {localised}, "
+                             f"ATE {ate} of path {path}, inserts {len(st['insert_ms'])}, "
+                             f"landmarks {n_map}, launches {launches}")
+    return out
+
+
+def check_matcher_map(dev, calls) -> dict:
+    """K2 at `localize_step`'s first input with live landmarks: the
+    frame's 2048 descriptors against the 8192-slot map, most columns
+    masked by `active`; against its plain version and timed."""
+    ta, tb, tv = calls["map"]
+    err = _k2_case("map localize", ta, tb, tv)
+    return dict(max_abs_err=err, valid_b=int(tv.sum()), shape=[ta.shape[0], tb.shape[0]],
+                **_k2_timed("k2 map", ta, tb, tv))
+
+
+SEGMENT_REL = 1e-4   # of each segment's sum of |x|: the card's atomics add in another order
+
+
+def check_segment(dev, calls: dict) -> dict:
+    """Phase 29: the segment-sum kernel at each input a path gave it,
+    against its plain version (`index_add_`) on the same inputs: on the
+    CPU, whose order of adds it repeats, bit for bit (`max_abs_err`); on
+    the card, whose atomics add in another order, within SEGMENT_REL of
+    each segment's sum of |x| (`atomics_rel_err`).  Timed beside
+    `index_add_` on the card and beside `index_put_(accumulate=True)`;
+    bound by the bytes of x, the indices and the output."""
+    from cusift_tpu_torch.kernels import segment
+
+    out = {}
+    for tag, (x, p) in calls.items():
+        got = segment.segment_sum(x, p)
+        plain = segment.segment_sum_plain(x, p)
+        cpu = segment.segment_sum_plain(x.cpu(), segment.plan(p.idx.cpu(), p.n))
+        scale = segment.segment_sum_plain(x.abs(), p) + 1e-30
+        torch.cuda.synchronize()
+        err = float((got.cpu() - cpu).abs().max()) if got.numel() else 0.0
+        rel = float(((got - plain).abs() / scale).max()) if got.numel() else 0.0
+        if not torch.equal(got.cpu(), cpu) or not rel <= SEGMENT_REL:
+            raise AssertionError(f"segment {tag}: max |kernel - CPU index_add_| {err}, "
+                                 f"against the card's atomics {rel} of sum |x|")
+        zeros = x.new_zeros(got.shape)
+        ms = time_ms(lambda: segment.segment_sum(x, p), f"segment {tag}")
+        plain_ms = time_ms(lambda: segment.segment_sum_plain(x, p), f"segment {tag} plain")
+        library_ms = time_ms(lambda: zeros.clone().index_put_((p.idx,), x, accumulate=True),
+                             f"segment {tag} library")
+        rows, d = x.shape[0], max(1, x[0].numel()) if x.shape[0] else 1
+        b = bound(nbytes(x, got) + p.idx.numel() * 8, rows * d)
+        seg_len = int(torch.bincount(p.idx, minlength=p.n).max()) if rows else 0
+        out[tag] = dict(shape=[rows, *x.shape[1:]], segments=p.n, longest=seg_len,
+                        max_abs_err=err, atomics_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, **b)
+        log("segment", case=tag, shape=f"R{rows},d{d},n{p.n}", longest=seg_len,
+            max_abs_err_vs_cpu=err, atomics_rel_err=rel, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+            bound_ms=f"{b['bound_ms']:.6f}", card=json.dumps(smi_line()))
+    return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), calls=out)
 
 
 # ---------- phases 23-27: distribution, the CLI, disk, entry points ----------
@@ -2299,6 +2552,12 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     ent = entry_path(dev)
     log("phases 25-27", seconds=f"{time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    mvo = map_vo_path(dev, stereo_seq, vo)
+    k2_map = check_matcher_map(dev, mvo["k2_in"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_map["max_abs_err"])
+    seg = check_segment(dev, {**mvo["segment_in"], **sfm["segment_in"], **vo["segment_in"]})
+    log("phases 28-29", seconds=f"{time.perf_counter() - t0:.3f}")
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -2327,6 +2586,10 @@ def main() -> int:
                   chunk8_frames=STEREO_CHUNK_FRAMES)
         for i, key in ((1, "sampler"), (2, "matcher"))}
 
+    map_launches = {key: dict(run=mvo["launches"][key], frames=mvo["frames"],
+                              per_frame=mvo[f"k{i}_per_frame"])
+                    for i, key in ((1, "sampler"), (2, "matcher"))}
+    seg_main = seg["calls"]["map refine 1"]
     src = "cusift_tpu_torch/csrc/"
     tpu = "cusift_tpu/ops/pallas/"
     kernels = [
@@ -2339,7 +2602,8 @@ def main() -> int:
              stereo_path="stereo SLAM (phase 18)", vo_launches=vo_launches["sampler"],
              vo_path="mono VO (phases 19-20)", vo_shape=k1_vo,
              sfm_launches={k: sfm[k]["sampler"] for k in ("rgbd", "mono")},
-             new_path_launches=new_paths["sampler"], **k1),
+             new_path_launches=new_paths["sampler"], map_launches=map_launches["sampler"],
+             map_path="map-anchored mono VO (phase 28)", **k1),
         dict(name="match_top2", route="cuda", source=src + "matcher.cu",
              replaces=tpu + "matcher.py:43", path="two-view (phase 5)",
              launches=launches["matcher"], rgbd_pair_launches=rgbd["matcher"],
@@ -2349,7 +2613,8 @@ def main() -> int:
              stereo_path="stereo SLAM (phase 18)", vo_launches=vo_launches["matcher"],
              vo_path="mono VO (phases 19-20)", vo_shape=k2_vo,
              sfm_launches={k: sfm[k]["matcher"] for k in ("rgbd", "mono")},
-             new_path_launches=new_paths["matcher"], **k2),
+             new_path_launches=new_paths["matcher"], map_launches=map_launches["matcher"],
+             map_path="map-anchored mono VO (phase 28)", map_shape=k2_map, **k2),
         dict(name="fused_octave", route="cuda", source=src + "octave.cu",
              replaces=tpu + "octave.py:186", path="batched fused (phase 11)",
              launches=batch["octave"], **k3),
@@ -2362,6 +2627,16 @@ def main() -> int:
         dict(name="sample_grad_patches_sep", route="cuda", source=src + "sampler.cu",
              replaces=tpu + "sampler.py:517", path="separable two-view (phase 12)",
              launches=sep["sep"], **k6),
+        # not a TPU kernel: the deterministic twin of the reference's XLA
+        # scatter-adds; its JSON numbers are the landmark refinement's call
+        dict(name="segment_sum", route="cuda", source=src + "segment.cu",
+             replaces="none (XLA scatter-add: cusift_tpu/optim/ba.py:35, "
+                      "cusift_tpu/models/monomap.py:236)",
+             path="map-anchored mono VO (phase 28)", launches=mvo["launches"]["segment"],
+             sfm_launches={k: sfm[k]["segment"] for k in ("rgbd", "mono")},
+             vo_launches=vo["launches"]["segment"], max_abs_err=seg["max_abs_err"],
+             **{k: seg_main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                         "bound_by")}, calls=seg["calls"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -301,9 +301,8 @@ def cmd_odo(args):
 
     --kitti SEQ_DIR runs a KITTI odometry sequence (with --poses for
     ground-truth drift metrics); with no dataset a synthetic two-plane
-    scene runs the same pipeline.  --map-anchor raises: the map-anchored
-    frontend (models/monomap.py) is not ported yet (ROADMAP queue 1,
-    item 11).
+    scene runs the same pipeline.  --map-anchor localises every frame
+    against a persistent landmark map (models/monomap.py).
     """
     from .config import RansacConfig, SiftConfig, VOConfig
     from .data import kitti as kitti_mod
@@ -522,8 +521,9 @@ def main(argv=None):
                    help="sequence-scale frontend: keyframe ring + loop "
                         "closure + Sim(3) pose graph (bounds long-run drift)")
     o.add_argument("--map-anchor", action="store_true",
-                   help="persistent-landmark map + PnP localisation (not "
-                        "ported yet: raises NotImplementedError)")
+                   help="persistent-landmark map + PnP localisation "
+                        "(anchors the monocular scale to the map instead "
+                        "of the per-pair chain; implies --loop)")
     o.add_argument("--kf-evict", choices=("redundant", "oldest", "none"),
                    default="redundant",
                    help="keyframe eviction policy once the ring is full")

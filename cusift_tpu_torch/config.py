@@ -66,7 +66,7 @@ class SiftConfig:
     fused_pyramid: str = "auto"
     fused_tile_rows: int = 96           # TPU row tile; no meaning here
     conv_backend: str = "auto"          # TPU convolution layout; one form here
-    pyramid_impl: str = "chain"         # "chain" ("direct" is not ported)
+    pyramid_impl: str = "chain"         # "chain" or "direct" (one matmul a level)
     score_dtype: str = "f32"            # extremum-score dtype: "f32" or "bf16"
 
     dtype: str = "float32"
@@ -95,6 +95,12 @@ class SiftConfig:
         """Compacted descriptor-slot capacity of one octave (multiple of 8)."""
         n = int(self.kpt_budget(octave) * self.desc_slot_factor)
         return max(8, (n + 7) // 8 * 8)
+
+    @property
+    def desc_slots_per_octave(self) -> int:
+        """Octave-0 descriptor-slot capacity (for buffers sized for the
+        worst octave)."""
+        return self.desc_slots(0)
 
     @property
     def sigma_oct_max(self) -> float:
@@ -241,8 +247,8 @@ class VOConfig:
     # tracking reference: "prev" (each consecutive pair) or "keyframe"
     # (each frame against the last keyframe)
     track_ref: str = "prev"
-    # persistent-map scale anchoring (`models/monomap.py` in the
-    # reference; not ported yet, so True raises) and its parameters
+    # persistent-map scale anchoring (`models/monomap.py`; experimental
+    # and frozen in the reference) and its parameters
     map_anchor: bool = False
     map_size: int = 8192
     map_active_kf: int = 6

@@ -132,7 +132,8 @@ def mono_checkpoint_arrays(vo) -> dict:
     the reference's `MonoVO.checkpoint`: poses, scale state, the RANSAC
     stream's (seed, counter), the current frame's features and chained
     depths, the BA ring and, with a VOConfig, the keyframe ring, the
-    Sim(3) edges, the correction and the keyframe-tracking reference."""
+    Sim(3) edges, the correction, the keyframe-tracking reference and, with
+    map_anchor, the landmark map and the device pose state."""
     def host(t):
         return t.detach().cpu().numpy()
 
@@ -166,13 +167,22 @@ def mono_checkpoint_arrays(vo) -> dict:
         d["ref_feats"] = pack_features(vo._ref_feats)
         d["ref_depth"] = host(vo._ref_depth)
         d["ref_pose_r"], d["ref_pose_t"] = vo._ref_pose
+    if vo.vo_cfg.map_anchor:
+        lm = vo._lmap
+        d.update(lmap_pos=host(lm.pos), lmap_desc=host(lm.desc), lmap_valid=host(lm.valid),
+                 lmap_seen=host(lm.seen), lmap_nobs=host(lm.nobs),
+                 dev_pose_r=host(vo._dev_pose[0]), dev_pose_t=host(vo._dev_pose[1]),
+                 dev_rel_r=host(vo._dev_rel[0]), dev_rel_t=host(vo._dev_rel[1]))
+        if vo._map_inl is not None:
+            d["map_inl"] = host(vo._map_inl)
     return d
 
 
-def mono_state_fields(z, device, with_vo: bool) -> dict:
+def mono_state_fields(z, device, with_vo: bool, map_anchor: bool = False) -> dict:
     """{`MonoVO` attribute: value} from a checkpoint's arrays (either
     package's): tensors go to `device`, poses and edges stay on the host.
-    `with_vo`: the VO has a VOConfig (keyframe ring, edges, correction)."""
+    `with_vo`: the VO has a VOConfig (keyframe ring, edges, correction);
+    `map_anchor`: it tracks against a landmark map (`models/monomap.py`)."""
     def dev(a, dtype=np.float32):
         return torch.from_numpy(np.array(a, dtype)).to(device)
 
@@ -208,4 +218,16 @@ def mono_state_fields(z, device, with_vo: bool) -> dict:
         f["_ref_depth"] = dev(z["ref_depth"])
         f["_ref_pose"] = (np.array(z["ref_pose_r"], np.float32),
                           np.array(z["ref_pose_t"], np.float32))
+    if map_anchor:
+        from .models.monomap import LandmarkMap
+
+        if "lmap_pos" not in z:
+            raise ValueError("checkpoint lacks map-anchor state (saved without it?)")
+        f["_lmap"] = LandmarkMap(pos=dev(z["lmap_pos"]), desc=dev(z["lmap_desc"]),
+                                 valid=dev(z["lmap_valid"], bool),
+                                 seen=dev(z["lmap_seen"], np.int32),
+                                 nobs=dev(z["lmap_nobs"], np.int32))
+        f["_dev_pose"] = (dev(z["dev_pose_r"]), dev(z["dev_pose_t"]))
+        f["_dev_rel"] = (dev(z["dev_rel_r"]), dev(z["dev_rel_t"]))
+        f["_map_inl"] = dev(z["map_inl"], bool) if "map_inl" in z else None
     return f

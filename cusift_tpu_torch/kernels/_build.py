@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sampler.cu", "matcher.cu", "octave.cu")
+SOURCES = ("sampler.cu", "matcher.cu", "octave.cu", "segment.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -49,6 +49,8 @@ SIGNATURES = {
     #     H, W, band_rows, window_rows, vbuf_stride, smem_bytes, prefilter,
     #     stream
     "cusift_fused_octave": ((_P,) * 6 + (_I,) * 9 + (_F, _P), _I),
+    # segment sum: x, order, offsets, out, n, d, double_precision, stream
+    "cusift_segment_sum": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
 }
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"

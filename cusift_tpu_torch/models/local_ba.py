@@ -41,7 +41,7 @@ def build_window_problem_union(kf_desc, kf_valid, kf_pts, poses_r, poses_t,
     otherwise it founds its own.  Landmarks: all W*N slots (dead ones
     weight 0); observations: the [W, N] grid, each slot observing its
     owner.  The landmark index is arbitrary, so the problem is not a grid
-    (`BAProblem.grid` False: its segment sums take `index_add_`).
+    (`BAProblem.grid` False: its segment sums take `kernels/segment.py`).
     """
     w, n = kf_valid.shape
     fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]

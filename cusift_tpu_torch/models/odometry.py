@@ -25,13 +25,20 @@ speed/smoothness gate.  Poses, edges and the correction live on the host.
 
 Randomness: each step's RANSAC calls get `torch.Generator`s seeded from
 (seed, counter), one counter step per pair (two generators: essential,
-PnP) and per loop verification (three), as the reference splits one
-threefry key per step.  `dist_ba=True` shards the window BA over the
-"map" axis of every rank of the default process group (creating a
-one-rank group when there is none; see `models/slam.py`).
-`VOConfig.map_anchor=True` raises `NotImplementedError`: the map-anchored
-frontend (`models/monomap.py`) is not ported yet (ROADMAP queue 1,
-item 11).
+PnP), per map localisation (one) and per loop verification (three), as
+the reference splits one threefry key per step.  `dist_ba=True` shards
+the window BA over the "map" axis of every rank of the default process
+group (creating a one-rank group when there is none; see
+`models/slam.py`).
+
+`VOConfig.map_anchor=True` localises every frame against a persistent
+landmark map (`models/monomap.py`): `localize_step` takes the pair step's
+output, after its PnP rescue, and selects the pose on the device; the
+host fetches its [17] row.  That is one fetch a frame more than the
+reference, whose pair step and localisation share one fetch: the pair
+step's row decides the rescue here (a difference of route, not of
+result).  Keyframes insert landmarks (`insert_step`); the map and the
+device pose state are part of the checkpoint.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from ..utils.pipeline import _uploaded
 from ..utils.precision import f32_matmuls
 from .evict import select_victim
 from .local_ba import window_ba
+from .monomap import empty_map, insert_step, localize_step
 from .sift import SiftFeatures, extract
 from .slam import _f32, _kf_scores
 from .twoview import mask_to_content
@@ -290,9 +298,6 @@ class MonoVO:
                  vo_cfg: VOConfig | None = None,
                  pg_cfg: PoseGraphConfig = PoseGraphConfig(),
                  dist_ba: bool = False, *, device=None):
-        if vo_cfg is not None and vo_cfg.map_anchor:
-            raise NotImplementedError("VOConfig(map_anchor=True): models/monomap.py is "
-                                      "not ported yet (ROADMAP queue 1, item 11)")
         self.device = run_device(device, "MonoVO")
         # the distributed window BA over every rank's "map" axis; the group
         # comes first, since under torchrun it picks this rank's GPU
@@ -343,6 +348,17 @@ class MonoVO:
             self._kf_depth = torch.zeros((kf, n), device=dev)
             # (i, j, meas_r, meas_t, meas_s, weight)
             self._edges: list[tuple] = []
+            if vo_cfg.map_anchor:
+                if vo_cfg.track_ref == "keyframe":
+                    raise ValueError("map_anchor assumes prev-frame relatives "
+                                     "(VOConfig.track_ref)")
+                # the landmark map and the device pose state (the pose is
+                # selected on the device; the host never uploads it a frame)
+                self._lmap = empty_map(vo_cfg.map_size, dev)
+                self._map_inl = None
+                eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+                self._dev_pose = (eye, zero)
+                self._dev_rel = (eye, zero)
 
     def _next_generators(self, n: int) -> list[torch.Generator]:
         self._key_ctr += 1
@@ -387,12 +403,71 @@ class MonoVO:
             self._scale, self.sift_cfg, self.match_cfg, self.ransac_cfg, gens,
             self._content, pnp_rescue=(self.vo_cfg.pnp_rescue if self.vo_cfg is not None
                                        else True))
-        r_rel = packed[:9].reshape(3, 3)
-        t_rel = packed[9:12]
         scale, n_inl, n_common, ok = packed[12:16]
         pnp_inl, pnp_ok = 0, False
-        if packed[16] > 0.5:            # the PnP rescue supplied this pose
-            pnp_ok, pnp_inl = True, int(n_inl)
+        map_s_med, map_n_anchor = float("nan"), 0
+        if self.vo_cfg is not None and self.vo_cfg.map_anchor:
+            # PnP against the landmark map with the pose selected on the
+            # device; the chain pose stays the fallback
+            cfg, fb = self.vo_cfg, out.feats
+            mt = localize_step(
+                fb.desc, fb.valid, fb.x, fb.y, self.intr, out.depth, out.pts, out.ok,
+                out.r_rel, out.t_rel, out.scale, self._scale, *self._dev_pose, *self._dev_rel,
+                self._lmap, self.n_kf_total, self.n_kf_total - cfg.map_active_kf,
+                cfg.map_min_inliers, cfg.map_min_obs, cfg.map_min_anchor, cfg.map_scale_gain,
+                self.match_cfg, self.ransac_cfg, self._next_generators(1)[0])
+            self._lmap, self._map_inl = mt.lmap, mt.inliers
+            self._dev_pose, self._dev_rel = (mt.pose_r, mt.pose_t), (mt.rel_r, mt.rel_t)
+            self._scale = mt.scale
+            row = mt.packed.cpu().numpy()                     # the map's fetch
+            r_new, t_new = row[:9].reshape(3, 3), row[9:12]
+            scale, pnp_inl, pnp_ok = float(row[12]), int(row[13]), bool(row[14] > 0.5)
+            map_s_med, map_n_anchor = float(row[15]), int(row[16])
+            r_prev, t_prev = self.poses_r[-1], self.poses_t[-1]
+            r_rel = r_new @ r_prev.T
+            self._last_rel = (r_rel, t_new - r_rel @ t_prev)
+            self.poses_r.append(r_new)
+            self.poses_t.append(t_new)
+            self._depth = mt.depth
+            ring_entry = (fb.desc, fb.valid & (mt.depth > 1e-6), mt.pts)
+        else:
+            if packed[16] > 0.5:        # the PnP rescue supplied this pose
+                pnp_ok, pnp_inl = True, int(n_inl)
+            ring_entry = self._chain_pose(out, packed, kf_ref)
+        # the per-FRAME step (in keyframe-referenced mode t_rel spans ref ->
+        # cur; on a failed pair the carried relative motion)
+        step = float(np.linalg.norm(self._last_rel[1]))
+        self._ema_step = (step if self._ema_step == 0.0
+                          else 0.8 * self._ema_step + 0.2 * step)
+        self._feats = out.feats
+        if self.ba_window:
+            self._ring.append(ring_entry)
+            self._ring = self._ring[-self.ba_window:]
+            if (len(self._ring) == self.ba_window
+                    and (len(self.poses_r) - 1) % self.ba_every == 0):
+                self._window_ba()
+        loop = False
+        if self.vo_cfg is not None:
+            self._frame_ref.append(max(self.n_kf - 1, 0))
+            # keyframe-referenced mode never promotes a failed frame (it
+            # would become the next tracking reference)
+            if not kf_ref or ok >= 0.5:
+                loop = self._maybe_keyframe()
+        stat = dict(inliers=int(n_inl), scale=float(scale), scale_common=int(n_common),
+                    ok=bool(ok > 0.5), pnp_inliers=pnp_inl, pnp_ok=pnp_ok,
+                    map_s_med=map_s_med, map_n_anchor=map_n_anchor,
+                    keyframe=bool(self.vo_cfg is not None and self._kf_frame
+                                  and self._kf_frame[-1] == len(self.poses_r) - 1),
+                    loop=loop)
+        self.stats.append(stat)
+        if self.on_metric:
+            self.on_metric(stat)
+        return stat
+
+    def _chain_pose(self, out: PairOdometry, packed, kf_ref: bool) -> tuple:
+        """Compose the chain's pose from the pair's row (constant velocity on
+        a failed pair), carry its depths and return the BA ring's entry."""
+        r_rel, t_rel, ok = packed[:9].reshape(3, 3), packed[9:12], packed[15]
         r_prev, t_prev = self.poses_r[-1], self.poses_t[-1]
         if kf_ref:
             # rel measures ref(keyframe) -> cur: compose onto the REFERENCE
@@ -425,34 +500,7 @@ class MonoVO:
         ring_valid = out.feats.valid & (out.depth > 1e-6)
         if ok < 0.5:
             ring_valid = torch.zeros_like(ring_valid)
-        # per-FRAME step (in keyframe-referenced mode t_rel spans ref -> cur)
-        step = float(np.linalg.norm(self._last_rel[1] if kf_ref else t_rel))
-        self._ema_step = (step if self._ema_step == 0.0
-                          else 0.8 * self._ema_step + 0.2 * step)
-        self._feats = out.feats
-        if self.ba_window:
-            self._ring.append((out.feats.desc, ring_valid, out.pts))
-            self._ring = self._ring[-self.ba_window:]
-            if (len(self._ring) == self.ba_window
-                    and (len(self.poses_r) - 1) % self.ba_every == 0):
-                self._window_ba()
-        loop = False
-        if self.vo_cfg is not None:
-            self._frame_ref.append(max(self.n_kf - 1, 0))
-            # keyframe-referenced mode never promotes a failed frame (it
-            # would become the next tracking reference)
-            if not kf_ref or ok >= 0.5:
-                loop = self._maybe_keyframe()
-        stat = dict(inliers=int(n_inl), scale=float(scale), scale_common=int(n_common),
-                    ok=bool(ok > 0.5), pnp_inliers=pnp_inl, pnp_ok=pnp_ok,
-                    map_s_med=float("nan"), map_n_anchor=0,
-                    keyframe=bool(self.vo_cfg is not None and self._kf_frame
-                                  and self._kf_frame[-1] == len(self.poses_r) - 1),
-                    loop=loop)
-        self.stats.append(stat)
-        if self.on_metric:
-            self.on_metric(stat)
-        return stat
+        return out.feats.desc, ring_valid, out.pts
 
     # ---------- sequence-scale frontend (keyframes / loops / pose graph) ----
 
@@ -555,6 +603,14 @@ class MonoVO:
         self._kf_frame.append(len(self.poses_r) - 1)
         self.n_kf = i + 1
         self.n_kf_total += 1
+        if self.vo_cfg.map_anchor:
+            # the keyframe's map-scale depths become landmarks; slots that
+            # just localised against the map are existing landmarks
+            inl = (self._map_inl if self._map_inl is not None
+                   else torch.zeros_like(f.valid))
+            self._lmap = insert_step(self._lmap, f.desc, f.valid, f.response, f.x, f.y,
+                                     self.intr, self._depth, inl, *self._dev_pose,
+                                     self.n_kf_total, self.vo_cfg.map_insert_budget)
         if self.vo_cfg.track_ref == "keyframe":
             # the promoted frame becomes the tracking reference; the next
             # pair spans one frame, so the scale clamp restarts from the
@@ -783,6 +839,12 @@ class MonoVO:
             f_idx = self._kf_frame[-1]
             self._ref_pose = (self.poses_r[f_idx].copy(), self.poses_t[f_idx].copy())
         self._last_ba = (float(packed[-2]), float(packed[-1]))
+        if self.vo_cfg is not None and self.vo_cfg.map_anchor:
+            # BA rewrote the newest pose: refresh the device pose state
+            # (one upload a BA call; the per-frame path uploads nothing)
+            pose = torch.from_numpy(np.concatenate(
+                [self.poses_r[-1].ravel(), self.poses_t[-1]]).astype(np.float32)).to(self.device)
+            self._dev_pose = (pose[:9].reshape(3, 3), pose[9:])
 
     # ---------- checkpoint / resume ----------
 
@@ -795,7 +857,8 @@ class MonoVO:
     def restore(self, path: str):
         """Restore a `checkpoint` into this identically-configured VO."""
         with np.load(path) as z:
-            fields = mono_state_fields(z, self.device, self.vo_cfg is not None)
+            fields = mono_state_fields(z, self.device, self.vo_cfg is not None,
+                                       self.vo_cfg is not None and self.vo_cfg.map_anchor)
         for name, value in fields.items():
             setattr(self, name, value)
 

@@ -13,8 +13,9 @@ from __future__ import annotations
 import torch
 
 from ..config import SiftConfig
-from .keypoints import Keypoints, top_indices
+from .keypoints import Keypoints, concat_keypoints, top_indices, topk_keypoints
 from .mat3 import solve3
+from .pyramid import Octave
 
 
 def _extrema_mask(dog: torch.Tensor, prefilter: float) -> torch.Tensor:
@@ -122,6 +123,11 @@ def _refine_batch(dog: torch.Tensor, lvl, y, x, cfg: SiftConfig):
     return xo, yo, so, lvl, contrast, edgeness, valid
 
 
+def detect_octave(oct_: Octave, octave_idx: int, cfg: SiftConfig) -> Keypoints:
+    """All keypoints of one octave, compacted to cfg.kpt_budget(octave)."""
+    return detect_from_score(oct_.dog, extrema_score(oct_.dog, cfg), octave_idx, cfg)
+
+
 def detect_from_score(dog: torch.Tensor, score: torch.Tensor,
                       octave_idx: int, cfg: SiftConfig) -> Keypoints:
     """Compaction + refinement of one octave from its extrema score."""
@@ -149,3 +155,9 @@ def detect_from_score(dog: torch.Tensor, score: torch.Tensor,
         octave=torch.full_like(lvl_f, octave_idx),
         level=lvl_f, xo=xo, yo=yo, so=so, valid=valid,
     )
+
+
+def detect(octaves: list[Octave], cfg: SiftConfig) -> Keypoints:
+    """Keypoints over all octaves, compacted to the global cfg.max_kpts."""
+    per_oct = [detect_octave(o, i, cfg) for i, o in enumerate(octaves)]
+    return topk_keypoints(concat_keypoints(per_oct), cfg.max_kpts)

@@ -36,6 +36,23 @@ class Keypoints(NamedTuple):
         return self.valid.sum()
 
 
+def empty_keypoints(k: int, device=None) -> Keypoints:
+    """k invalid lanes of zeros on `device` ("cuda" unless the caller asks
+    for the CPU)."""
+    from ..utils.device import run_device
+
+    dev = run_device(device, "empty_keypoints")
+    f = torch.zeros((k,), dtype=torch.float32, device=dev)
+    i = torch.zeros((k,), dtype=torch.int32, device=dev)
+    return Keypoints(x=f, y=f, sigma=f, response=f, edgeness=f, octave=i, level=i,
+                     xo=f, yo=f, so=f, valid=torch.zeros((k,), dtype=torch.bool, device=dev))
+
+
+def concat_keypoints(parts: list[Keypoints]) -> Keypoints:
+    """The parts' lanes one after another, field by field."""
+    return Keypoints(*(torch.cat(xs, 0) for xs in zip(*parts)))
+
+
 def top_indices(score: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest entries of a 1-D score, ties to the lower
     index (the order of `lax.top_k`; `torch.topk` promises none)."""

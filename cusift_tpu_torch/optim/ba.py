@@ -15,8 +15,10 @@ system S = U - W V^-1 W^T is applied implicitly inside PCG:
 Segment sums: where the observations form the [C, L] grid of a keyframe
 window (`BAProblem.grid`: cam_idx = repeat(arange(C), L), pt_idx =
 tile(arange(L), C)), a sum by camera or by landmark is a reshape and a
-`sum`, exact and deterministic; otherwise `index_add_`, whose CUDA form
-adds with atomics, so its bits may change from run to run.
+`sum`, exact and deterministic; otherwise `kernels/segment.py:
+segment_sum` over plans that `lm_loop` makes once per problem
+(`BAProblem.segs`): `index_add_` on the CPU, and on the card a kernel that
+adds each segment's rows in the CPU's order, so reruns are bit-identical.
 
 The LM and PCG loops are Python loops of fixed length whose accept and
 reject are `torch.where`: nothing in them reads a value back to the host.
@@ -38,6 +40,7 @@ import torch
 import torch.distributed
 
 from ..config import BAConfig
+from ..kernels import segment
 from ..ops.geometry import project
 from ..ops.mat3 import inv3_spd
 from ..utils.collective import psum
@@ -59,6 +62,9 @@ class BAProblem(NamedTuple):
     # True when the observations are the [C, L] grid (O = C * L,
     # cam_idx = repeat(arange(C), L), pt_idx = tile(arange(L), C))
     grid: bool = False
+    # (camera, landmark) `kernels/segment.py` plans of cam_idx and pt_idx
+    # off the grid, made once by `lm_loop`; None makes them at each use
+    segs: tuple | None = None
 
 
 class BAResult(NamedTuple):
@@ -70,19 +76,28 @@ class BAResult(NamedTuple):
     iterations: torch.Tensor
 
 
-def _seg(x: torch.Tensor, idx: torch.Tensor, n: int, grid: str | None) -> torch.Tensor:
-    """segment_sum of x [O, ...] by idx into n rows.  grid "cam" or "pt"
-    sums the [C, L] observation grid over its landmarks or its cameras."""
-    if grid == "cam":
+def _seg(x: torch.Tensor, form, n: int) -> torch.Tensor:
+    """segment_sum of x [O, ...] into n rows.  form "cam" or "pt" sums the
+    [C, L] observation grid over its landmarks or its cameras; otherwise
+    it is the `segment.Plan` of the rows' indices."""
+    if form == "cam":
         return x.reshape(n, -1, *x.shape[1:]).sum(1)
-    if grid == "pt":
+    if form == "pt":
         return x.reshape(-1, n, *x.shape[1:]).sum(0)
-    return x.new_zeros((n,) + x.shape[1:]).index_add_(0, idx.long(), x)
+    return segment.segment_sum(x, form)
+
+
+def with_segments(p: BAProblem) -> BAProblem:
+    """p with its segment plans made (none on the grid)."""
+    if p.grid or p.segs is not None:
+        return p
+    return p._replace(segs=(segment.plan(p.cam_idx, p.poses_r.shape[0]),
+                            segment.plan(p.pt_idx, p.points.shape[0])))
 
 
 def _grids(p: BAProblem):
     """(camera, landmark) segment-sum forms of p's layout for `_seg`."""
-    return ("cam", "pt") if p.grid else (None, None)
+    return ("cam", "pt") if p.grid else with_segments(p).segs
 
 
 def _camera_points(p: BAProblem):
@@ -186,11 +201,11 @@ def build_blocks(p: BAProblem, damping, huber_delta: float,
     w = _robust_weights(res, p.w, huber_delta)[:, None, None]     # [O, 1, 1]
     jct = jc.transpose(-1, -2)                                    # [O, 6, 2]
     jpt = jp.transpose(-1, -2)                                    # [O, 3, 2]
-    u = _seg(w * (jct @ jc), p.cam_idx, c, gc)                    # [C, 6, 6]
-    v = _seg(w * (jpt @ jp), p.pt_idx, l, gp)                     # [L, 3, 3]
+    u = _seg(w * (jct @ jc), gc, c)                               # [C, 6, 6]
+    v = _seg(w * (jpt @ jp), gp, l)                               # [L, 3, 3]
     wo = w * (jct @ jp)                                           # [O, 6, 3]
-    b_c = -_seg((w * jct @ res[..., None])[..., 0], p.cam_idx, c, gc)
-    b_p = -_seg((w * jpt @ res[..., None])[..., 0], p.pt_idx, l, gp)
+    b_c = -_seg((w * jct @ res[..., None])[..., 0], gc, c)
+    b_p = -_seg((w * jpt @ res[..., None])[..., 0], gp, l)
     # LM damping; the small epsilon keeps unobserved blocks invertible
     eye6 = torch.eye(6, dtype=u.dtype, device=u.device)
     eye3 = torch.eye(3, dtype=u.dtype, device=u.device)
@@ -206,19 +221,20 @@ def build_blocks(p: BAProblem, damping, huber_delta: float,
 
 
 @f32_matmuls
-def schur_matvec(blocks: _Blocks, cam_idx, pt_idx, x, cam_mask, grid: bool = False,
+def schur_matvec(blocks: _Blocks, cam_idx, pt_idx, x, cam_mask, forms: tuple,
                  group=None):
-    """(S x) for camera-delta x [C, 6]; cam_mask [C] fixes gauge poses.
+    """(S x) for camera-delta x [C, 6]; cam_mask [C] fixes gauge poses;
+    `forms`: the problem's (camera, landmark) sum forms (`_grids`).
 
     With a `group`, the camera-sized correction is all-reduced: t_p and the
     V blocks stay on the rank that holds the landmark."""
-    gc, gp = ("cam", "pt") if grid else (None, None)
+    gc, gp = forms
     x = x * cam_mask[:, None]
     t_p = _seg((blocks.wo.transpose(-1, -2) @ x[cam_idx.long()][..., None])[..., 0],
-               pt_idx, blocks.v_inv.shape[0], gp)                 # [L, 3]
+               gp, blocks.v_inv.shape[0])                         # [L, 3]
     y = (blocks.v_inv @ t_p[..., None])[..., 0]                   # [L, 3]
     corr = _seg((blocks.wo @ y[pt_idx.long()][..., None])[..., 0],
-                cam_idx, x.shape[0], gc)                          # [C, 6]
+                gc, x.shape[0])                                   # [C, 6]
     if group is not None:
         corr = psum(corr, group)
     sx = (blocks.u @ x[..., None])[..., 0] - corr
@@ -226,13 +242,11 @@ def schur_matvec(blocks: _Blocks, cam_idx, pt_idx, x, cam_mask, grid: bool = Fal
 
 
 @f32_matmuls
-def reduced_rhs(blocks: _Blocks, cam_idx, pt_idx, cam_mask, grid: bool = False,
-                group=None):
+def reduced_rhs(blocks: _Blocks, pt_idx, cam_mask, cam_form, group=None):
     """b~_c = b_c - W V^-1 b_p (the Schur-reduced right-hand side)."""
-    gc = "cam" if grid else None
     y = (blocks.v_inv @ blocks.b_p[..., None])[..., 0]            # [L, 3]
     corr = _seg((blocks.wo @ y[pt_idx.long()][..., None])[..., 0],
-                cam_idx, blocks.b_c.shape[0], gc)
+                cam_form, blocks.b_c.shape[0])
     if group is not None:
         corr = psum(corr, group)
     return (blocks.b_c - corr) * cam_mask[:, None]
@@ -295,10 +309,10 @@ def _dense_schur_solve(p: BAProblem, blocks: _Blocks, b, cam_mask,
         def by_key(x):
             return x.reshape(c, l, *x.shape[1:]).transpose(0, 1)
     else:
-        key = p.pt_idx.long() * c + p.cam_idx.long()
+        key = segment.plan(p.pt_idx.long() * c + p.cam_idx.long(), l * c)
 
         def by_key(x):
-            return _seg(x, key, l * c, None).reshape(l, c, *x.shape[1:])
+            return _seg(x, key, l * c).reshape(l, c, *x.shape[1:])
     a = by_key(blocks.wo).reshape(l, c * 6, 3)
     w = _robust_weights(res, p.w, huber_delta)[:, None, None]
     jct = jc.transpose(-1, -2)
@@ -351,20 +365,20 @@ def solve_normal_equations(p: BAProblem, damping, cfg: BAConfig, group=None):
     def precond(r):
         return (u_inv @ r[..., None])[..., 0] * cam_mask[:, None]
 
-    b = reduced_rhs(blocks, p.cam_idx, p.pt_idx, cam_mask, p.grid, group)
+    forms = _grids(p)
+    b = reduced_rhs(blocks, p.pt_idx, cam_mask, forms[0], group)
     if cfg.solver == "dense" and group is None:
         dc = _dense_schur_solve(p, blocks, b, cam_mask, res, jc,
                                 cfg.huber_delta, damping)
     else:
-        dc = pcg(lambda x: schur_matvec(blocks, p.cam_idx, p.pt_idx, x, cam_mask, p.grid,
+        dc = pcg(lambda x: schur_matvec(blocks, p.cam_idx, p.pt_idx, x, cam_mask, forms,
                                         group),
                  b, precond, cfg.cg_iters, cfg.cg_tol)
 
     # back-substitute landmarks: dp = V^-1 (b_p - W^T dc)
-    _, gp = _grids(p)
     dcm = (dc * cam_mask[:, None])[p.cam_idx.long()]
     t_p = _seg((blocks.wo.transpose(-1, -2) @ dcm[..., None])[..., 0],
-               p.pt_idx, p.points.shape[0], gp)
+               forms[1], p.points.shape[0])
     dp = (blocks.v_inv @ (blocks.b_p - t_p)[..., None])[..., 0]
     return dc, dp
 
@@ -383,7 +397,9 @@ def lm_loop(p: BAProblem, cfg: BAConfig, group=None) -> BAResult:
 
     Runs alone (group=None) or on every rank of `group` with sharded
     observations and landmarks and replicated poses; the accept decision
-    reads the all-reduced cost, so the ranks stay in step."""
+    reads the all-reduced cost, so the ranks stay in step.  The segment
+    plans are made here, once for the whole solve."""
+    p = with_segments(p)
     c0 = cost(p, cfg.huber_delta, group)
     lam = torch.tensor(cfg.init_damping, dtype=torch.float32, device=c0.device)
     cur = c0

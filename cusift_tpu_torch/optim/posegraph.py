@@ -17,8 +17,10 @@ times with one basis tangent.
 "cg" solves (J^T J + lambda I) dx = -J^T r matrix-free, as the
 reference's jvp/vjp do: each round gathers the endpoint steps of every
 edge, multiplies them by the edge's [12, 12] block J_e^T J_e and
-scatter-adds the products into [N, 6] (`index_add_`; on CUDA its atomics
-may change the bits from run to run), so its memory is O(E + N).
+scatter-adds the products into [N, 6] (`kernels/segment.py:segment_sum`
+over the endpoint plan made once per solve: `index_add_` on the CPU, a
+kernel on the card that adds in the CPU's order, so reruns are
+bit-identical), so its memory is O(E + N).
 "dense" lays the blocks out as one J [6E, 6N] (a one-hot product, no
 scatter and no atomics) and factors H = J^T J with `cholesky_ex`, which
 neither raises nor waits for the device: a factor that fails is NaN, as
@@ -40,6 +42,7 @@ import torch
 import torch.autograd.forward_ad as fwad
 
 from ..config import PoseGraphConfig
+from ..kernels import segment
 from ..utils.collective import psum
 from ..utils.precision import f32_matmuls
 from . import robust
@@ -189,6 +192,8 @@ def lm_loop(g: PoseGraph, cfg: PoseGraphConfig, group=None) -> PoseGraphResult:
     # the dense normal equations are single-device only: with sharded
     # edges their assembly would need an O(N^2) all-reduce
     dense = cfg.solver == "dense" and group is None
+    ends = torch.stack([g.edge_i, g.edge_j], 1).long()                     # [E, 2]
+    ends_plan = None if dense else segment.plan(ends.reshape(-1), n)
 
     def psum_(x):
         return psum(x, group) if group is not None else x
@@ -219,12 +224,10 @@ def lm_loop(g: PoseGraph, cfg: PoseGraphConfig, group=None) -> PoseGraphResult:
             dx = torch.cholesky_solve(bm[:, None], chol)[:, 0].reshape(n, 6) * mask
         else:
             res0, jac = edge_jacobians(g_it)
-            ends = torch.stack([g_it.edge_i, g_it.edge_j], 1).long()        # [E, 2]
             hblk = jac.transpose(1, 2) @ jac                                 # [E, 12, 12]
 
             def scatter(y):                     # [E, 12] -> [N, 6], per endpoint
-                return torch.zeros((n, 6), dtype=y.dtype, device=y.device).index_add_(
-                    0, ends.reshape(-1), y.reshape(-1, 6))
+                return segment.segment_sum(y.reshape(-1, 6), ends_plan)
 
             def normal_mv(x):
                 x = x * mask

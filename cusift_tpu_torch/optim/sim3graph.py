@@ -18,8 +18,10 @@ Each LM iteration linearises the graph once: the per-edge [7, 14] blocks
 forward-mode pass with dual tensors, each edge repeated 14 times with one
 basis tangent.  CG then solves (J^T J + lambda I) dx = -J^T r matrix-free:
 each round gathers the endpoint steps, multiplies them by the edge's
-[14, 14] block and scatter-adds into [N, 7] (`index_add_`; on CUDA its
-atomics may change the bits from run to run).  The reference's
+[14, 14] block and scatter-adds into [N, 7] (`kernels/segment.py:
+segment_sum` over the endpoint plan made once per solve: `index_add_` on
+the CPU, a kernel on the card that adds in the CPU's order, so reruns are
+bit-identical).  The reference's
 `axis_name` (the sharded path) is not ported.
 """
 
@@ -31,6 +33,7 @@ import torch
 import torch.autograd.forward_ad as fwad
 
 from ..config import PoseGraphConfig
+from ..kernels import segment
 from ..utils.precision import f32_matmuls
 from . import robust
 from .lie import so3_exp, so3_log
@@ -157,10 +160,10 @@ def lm_loop(g: Sim3Graph, cfg: PoseGraphConfig) -> Sim3Result:
         mask[0] = 0.0
     delta = cfg.huber_delta
     ends = torch.stack([g.edge_i, g.edge_j], 1).long().reshape(-1)          # [2E]
+    ends_plan = segment.plan(ends, n)
 
     def scatter(y):                     # [E, 14] -> [N, 7], per endpoint
-        return torch.zeros((n, 7), dtype=y.dtype, device=y.device).index_add_(
-            0, ends, y.reshape(-1, 7))
+        return segment.segment_sum(y.reshape(-1, 7), ends_plan)
 
     c0 = _robust_cost(g, delta, cfg.robust_kernel)
     lam = torch.tensor(cfg.init_damping, dtype=torch.float32, device=c0.device)

@@ -1,9 +1,8 @@
 """The port's command line (cusift_tpu_torch/cli.py) with --device cpu at
 small keypoint budgets: every subcommand runs to its end and prints the
 reference's fields, on the synthetic scenes and on TUM and KITTI folders
-written to disk (the twin of tests/test_cli.py:29), and `slam --dist` on a
-one-rank group; `odo --map-anchor`
-raises NotImplementedError naming ROADMAP's monomap item; `slam --metrics`
+written to disk (the twin of tests/test_cli.py:29), `odo --map-anchor`, and
+`slam --dist` on a one-rank group; `slam --metrics`
 streams one JSON line a frame; the last line is the kernel launches (none
 on the CPU).
 """
@@ -28,7 +27,7 @@ def _run(capsys, *argv):
     out = capsys.readouterr().out
     last = json.loads(out.strip().splitlines()[-1].split("kernel launches: ", 1)[1])
     assert last == {k: 0 for k in ("sampler", "matcher", "octave", "ori_hist", "desc_raw",
-                                   "sep")}
+                                   "sep", "segment")}
     return out
 
 
@@ -136,9 +135,13 @@ def test_cli_dist_two_ranks(capsys):
         assert f"dist-BA {64 * n} landmarks on {n} dev" in out
 
 
-def test_cli_odo_map_anchor_raises():
-    with pytest.raises(NotImplementedError, match="monomap.*item 11"):
-        cli.main(["odo", "--synthetic", "4", "--map-anchor", *SMALL])
+def test_cli_odo_map_anchor_raises(capsys):
+    """`odo --map-anchor` runs the map-anchored frontend and prints the
+    reference's fields."""
+    out = _run(capsys, "odo", "--synthetic", "4", "--map-anchor", *SMALL)
+    assert "processed 4 frames" in out and "3/3 pairs tracked" in out
+    assert _value(out, "ATE RMSE", "Sim3-aligned)") < 0.15
+    assert "KITTI drift:" in out
 
 
 def test_cli_slam_dist_one_rank(capsys):

@@ -4,8 +4,8 @@ package's.
 The port keeps its own copy of `SiftConfig`, `MatchConfig`,
 `RansacConfig`, `BAConfig`, `PoseGraphConfig`, `SlamConfig`, `VOConfig`
 and `MeshConfig` (and `replace`), so both packages are built from the same keyword arguments.  The copies must keep every field name and default of the
-reference, and every copied method must give the same value, at the
-default configuration and at the bench's.
+reference, and every copied method and property must give the same value,
+at the default configuration and at the bench's.
 """
 
 import dataclasses
@@ -44,11 +44,31 @@ def test_replace_matches_reference():
     assert hash(ours) == hash(tcfg.SlamConfig(max_keyframes=8, kf_evict="oldest"))
 
 
+def _properties(cls) -> list[str]:
+    return sorted(n for n in dir(cls) if isinstance(getattr(cls, n), property))
+
+
+@pytest.mark.parametrize("name", ["SiftConfig", "MatchConfig", "RansacConfig",
+                                  "BAConfig", "PoseGraphConfig", "SlamConfig",
+                                  "VOConfig", "MeshConfig"])
+def test_properties_equal(name):
+    """Every property of the reference's config has a twin of the same
+    value at the defaults."""
+    ref_cls, ours_cls = getattr(jcfg, name), getattr(tcfg, name)
+    assert _properties(ours_cls) == _properties(ref_cls)
+    ours, ref = ours_cls(), ref_cls()
+    for prop in _properties(ref_cls):
+        assert getattr(ours, prop) == getattr(ref, prop), prop
+
+
 @pytest.mark.parametrize("which", sorted(CONFIGS))
 def test_sift_methods_equal(which):
     kw = CONFIGS[which]
     ours, ref = tcfg.SiftConfig(**kw), jcfg.SiftConfig(**kw)
-    for prop in ("levels_per_octave", "total_kpts", "sigma_oct_max"):
+    props = _properties(jcfg.SiftConfig)
+    assert {"levels_per_octave", "total_kpts", "sigma_oct_max",
+            "desc_slots_per_octave"} <= set(props)
+    for prop in props:
         assert getattr(ours, prop) == getattr(ref, prop), prop
     assert ours.sigmas() == ref.sigmas()
     assert ours.incremental_sigmas() == ref.incremental_sigmas()

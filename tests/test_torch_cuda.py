@@ -28,7 +28,12 @@ samples are drawn on the CPU and fed to both): the same inliers, R within
 tests/test_torch_odometry_samples.py); `find_essential` and `find_pnp` on the
 card at tests/test_essential.py's and tests/test_pnp.py's bars; the Sim(3)
 `optimize` on the card within 1e-3 relative of the CPU's cost; a short
-`MonoVO` run on the card tracking every pair.
+`MonoVO` run on the card tracking every pair.  Segment sums
+(`kernels/segment.py`): the kernel equal bit for bit to the CPU's
+`index_add_` on the same inputs at each user's shapes, and reruns of BA
+off the grid, the pose graph's CG, the Sim(3) CG and `localize_step`'s
+refinement bit-identical; a short map-anchored `MonoVO` run on the card
+at tests/test_monomap.py's bars.
 """
 
 import numpy as np
@@ -801,8 +806,8 @@ def test_essential_and_pnp_on_the_card(dev):
 
 def test_sim3_optimize_card_matches_cpu(dev):
     """The Sim(3) LM on tests/test_sim3.py's drifted loop on the card: the
-    final cost within 1e-3 relative of the CPU's (the scatter-adds are
-    atomics on the card) and 5% of the initial one."""
+    final cost within 1e-3 relative of the CPU's (the edge blocks come from
+    the card's own matmuls) and 5% of the initial one."""
     from cusift_tpu_torch import PoseGraphConfig
     from cusift_tpu_torch.data.synthetic import pose_ring
     from cusift_tpu_torch.optim.sim3graph import Sim3Graph, optimize
@@ -842,3 +847,157 @@ def test_mono_vo_on_the_card(dev):
     assert vo._kf_desc.device.type == "cuda" and vo.n_kf >= 4
     assert all(s["ok"] for s in vo.stats) and np.isfinite(et).all() and len(er) == 10
     assert k1.launches - before[0] == 10 * 2 * 3 and k2.launches > before[1] + 9
+
+
+SEGMENT_SHAPES = {"ba_cam": (3000, 10, (6, 6)), "ba_pt": (3000, 1200, (3, 3)),
+                  "posegraph": (144, 24, (6,)), "sim3": (256, 40, (7,)),
+                  "monomap": (2048, 8192, (3,)), "monomap_cnt": (2048, 8192, ()),
+                  "f64": (500, 7, (2,)), "empty": (0, 5, (3,))}
+
+
+@pytest.mark.parametrize("name", sorted(SEGMENT_SHAPES))
+def test_segment_kernel_matches_cpu(dev, name):
+    """The segment-sum kernel against the CPU's `index_add_` on the same
+    inputs: the same order of adds (tests/test_torch_segment.py replays
+    it), so equal bit for bit; and a rerun equal bit for bit."""
+    from cusift_tpu_torch.kernels import segment
+
+    rows, n, tail = SEGMENT_SHAPES[name]
+    dtype = np.float64 if name == "f64" else np.float32
+    rng = np.random.default_rng(len(name))
+    idx = torch.from_numpy(rng.integers(0, n, rows))
+    x = torch.from_numpy(rng.normal(size=(rows,) + tail).astype(dtype))
+    ref = torch.zeros((n,) + tail, dtype=x.dtype).index_add_(0, idx, x)
+    p = segment.plan(idx.to(dev), n)
+    before = segment.launches
+    got = segment.segment_sum(x.to(dev), p)
+    again = segment.segment_sum(x.to(dev), p)
+    torch.cuda.synchronize()
+    assert segment.launches == before + (2 if rows else 0)
+    assert torch.equal(got, again)
+    assert got.dtype == ref.dtype and torch.equal(got.cpu(), ref)
+
+
+def _sfm_like_problem(dev):
+    from cusift_tpu_torch.optim.ba import BAProblem
+
+    rng = np.random.default_rng(3)
+    c, l, o = 6, 400, 2000
+    pts = np.stack([rng.uniform(-2, 2, l), rng.uniform(-1, 1, l), rng.uniform(4, 8, l)], -1)
+    cam = rng.integers(0, c, o)
+    pt = rng.integers(0, l, o)
+    t = np.zeros((c, 3), np.float32)
+    t[:, 0] = np.linspace(0, 0.5, c)
+    pc = pts[pt] + t[cam]
+    uv = np.stack([200 * pc[:, 0] / pc[:, 2] + 160, 200 * pc[:, 1] / pc[:, 2] + 120], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    arrays = dict(poses_r=np.tile(np.eye(3, dtype=np.float32), (c, 1, 1)),
+                  poses_t=t + rng.normal(0, 0.01, t.shape), points=pts + rng.normal(0, 0.02, pts.shape),
+                  intr=np.array([200, 200, 160, 120]), cam_idx=cam, pt_idx=pt, uv=uv,
+                  w=np.ones(o))
+    return BAProblem(**{k: torch.from_numpy(np.asarray(v, np.int64 if k.endswith("idx")
+                                                       else np.float32)).to(dev)
+                        for k, v in arrays.items()})
+
+
+def test_solvers_rerun_bit_identical_on_the_card(dev):
+    """BA off the grid (an SfM-like problem), the pose graph's CG and the
+    Sim(3) CG give the same bits on a rerun; BA's cost within 1e-4 of the
+    CPU's."""
+    from cusift_tpu_torch import BAConfig, PoseGraphConfig
+    from cusift_tpu_torch.data.synthetic import pose_ring
+    from cusift_tpu_torch.kernels import segment
+    from cusift_tpu_torch.optim.ba import bundle_adjust
+    from cusift_tpu_torch.optim.posegraph import PoseGraph
+    from cusift_tpu_torch.optim.posegraph import optimize as pg_optimize
+    from cusift_tpu_torch.optim.sim3graph import Sim3Graph
+    from cusift_tpu_torch.optim.sim3graph import optimize as sim3_optimize
+
+    before = segment.launches
+    prob = _sfm_like_problem(dev)
+    cfg = BAConfig(max_iters=6, cg_iters=30)
+    runs = [bundle_adjust(prob, cfg) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    cpu = bundle_adjust(_sfm_like_problem("cpu"), cfg)
+    np.testing.assert_allclose(float(runs[0].cost), float(cpu.cost), rtol=1e-4)
+    ring = pose_ring(n=24, drift=0.03, seed=2)
+    t = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in ring.items()}
+    g = PoseGraph(t["init_r"], t["init_t"], t["edge_i"], t["edge_j"], t["meas_r"],
+                  t["meas_t"], t["weight"])
+    pcfg = PoseGraphConfig(max_iters=10, cg_iters=50, solver="cg")
+    for a, b in zip(pg_optimize(g, pcfg), pg_optimize(g, pcfg)):
+        assert torch.equal(a, b)
+    g3 = Sim3Graph(t["init_r"], t["init_t"], torch.ones(24, device=dev), t["edge_i"],
+                   t["edge_j"], t["meas_r"], t["meas_t"],
+                   torch.ones(t["edge_i"].shape[0], device=dev), t["weight"])
+    scfg = PoseGraphConfig(max_iters=20, cg_iters=60)
+    for a, b in zip(sim3_optimize(g3, scfg), sim3_optimize(g3, scfg)):
+        assert torch.equal(a, b)
+    assert segment.launches > before
+
+
+def test_localize_step_refinement_bit_identical_on_the_card(dev):
+    """`localize_step` on the card twice with the same generator seed:
+    every output, the refined landmark positions included, equal bit for
+    bit, and its pose within 1e-4 of the CPU's."""
+    from cusift_tpu_torch.config import MatchConfig, RansacConfig
+    from cusift_tpu_torch.kernels import segment
+    from cusift_tpu_torch.models.monomap import LandmarkMap, localize_step
+    from monomap_scene import clean_scene
+
+    s = clean_scene()
+
+    def run(d):
+        t = {k: (torch.from_numpy(np.array(v)).to(d) if isinstance(v, np.ndarray) else v)
+             for k, v in s.items() if k != "lmap"}
+        lmap = LandmarkMap(*(a.to(d) for a in s["lmap"]))
+        one = torch.ones((), device=d)
+        return localize_step(t["desc"], t["valid"], t["x"], t["y"], t["intr"], t["depth"],
+                             t["pts"], one > 0, t["pair_r"], t["pair_t"], one, one, t["prev_r"],
+                             t["prev_t"], t["last_r"], t["last_t"], lmap, 5, 1, 20, 3, 8, 0.4,
+                             MatchConfig(), RansacConfig(num_hypotheses=64),
+                             torch.Generator(device=d).manual_seed(0))
+
+    before = segment.launches
+    a, b = run(dev), run(dev)
+    torch.cuda.synchronize()
+    assert segment.launches == before + 4
+    for x, y in zip(a[:-1], b[:-1]):
+        assert torch.equal(x, y)
+    for x, y in zip(a.lmap, b.lmap):
+        assert torch.equal(x, y)
+    cpu = run("cpu")
+    assert float(a.packed[14]) == 1.0
+    np.testing.assert_allclose(a.packed.cpu().numpy(), cpu.packed.numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(a.lmap.pos.cpu().numpy(), cpu.lmap.pos.numpy(), atol=1e-4)
+    assert torch.equal(a.lmap.nobs.cpu(), cpu.lmap.nobs)
+
+
+def test_mono_vo_map_anchor_on_the_card(dev):
+    """tests/test_monomap.py's map-anchored scene on the card: PnP takes
+    over, every frame tracked by the pair or the map, ATE under 0.16 of the
+    path, the segment kernel launched by the refinement."""
+    from cusift_tpu_torch import RansacConfig, VOConfig
+    from cusift_tpu_torch.data.evaluation import ate_rmse, trajectory_path_length
+    from cusift_tpu_torch.data.synthetic import two_plane_sequence
+    from cusift_tpu_torch.kernels import segment
+    from cusift_tpu_torch.models.odometry import MonoVO
+
+    seq = two_plane_sequence(n_frames=14, h=240, w=320, seed=3, near=3.0, far=6.0,
+                             motion_scale=0.6)
+    vo = MonoVO(seq.intr, sift_cfg=SiftConfig(max_kpts=384, max_kpts_per_octave=256,
+                                              num_octaves=3, upscale=False),
+                ransac_cfg=RansacConfig(inlier_thresh_epi=4e-3),
+                vo_cfg=VOConfig(max_keyframes=32, kf_every=2, map_anchor=True, map_size=2048,
+                                map_active_kf=8, map_insert_budget=256, map_min_inliers=15,
+                                map_min_obs=2, map_min_anchor=8, loop_temporal_gap=1000),
+                device=dev)
+    before = segment.launches
+    er, et = vo.run(seq.images)
+    assert vo._lmap.pos.device.type == "cuda" and segment.launches - before == 2 * 13
+    pnp = [s["pnp_ok"] for s in vo.stats]
+    assert sum(pnp[3:]) >= 0.7 * len(pnp[3:])
+    assert all(s["ok"] or s["pnp_ok"] for s in vo.stats)
+    ate = ate_rmse(er, et, seq.poses_r, seq.poses_t, with_scale=True)
+    assert ate < 0.16 * trajectory_path_length(seq.poses_r, seq.poses_t)[-1]

@@ -4,7 +4,9 @@ against the JAX package.
 `detect_from_score` is fed JAX's own DoG and score, so the compaction sees
 identical candidates: `valid` must be equal, and the refined coordinates
 and responses agree to atol 1e-4 (closed-form 3x3 solves in float32 with
-another operation order).
+another operation order).  `detect_octave` and `detect` (every octave, then
+the global compaction) are fed JAX's own octaves and held the same way;
+`empty_keypoints` and `concat_keypoints` are equal field for field.
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ from cusift_tpu_torch.data.synthetic import textured_image
 from cusift_tpu_torch.ops import detect as tdetect
 from cusift_tpu_torch.ops import keypoints as tkp
 from cusift_tpu_torch.ops import mat3 as tmat3
+from cusift_tpu_torch.ops import pyramid as tpyr
 
 torch.set_num_threads(2)
 
@@ -125,3 +128,69 @@ def test_solve_spd_matches_jax():
     with jax.debug_nans(False):
         ref = np.asarray(jmat3.solve_spd(jnp.asarray(deg), jnp.asarray(b[:1])))
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+
+
+@pytest.fixture(scope="module")
+def pyramid():
+    """The JAX package's three octaves (levels and DoG) of a detailed
+    240x320 image, with the config that built them."""
+    img = textured_image(240, 320, seed=6, blobs=400, detail=0.25, detail_octaves=2)
+    cfg = SiftConfig(max_kpts=384, max_kpts_per_octave=256, num_octaves=3)
+    return cfg, [jpyr.Octave(*(np.asarray(a) for a in o))
+                 for o in jpyr.build_pyramid(jnp.asarray(img), cfg)]
+
+
+def _assert_keypoints_close(got, ref):
+    r, g = to_numpy(ref), to_numpy(got)
+    np.testing.assert_array_equal(g["valid"], r["valid"])
+    v = r["valid"]
+    for name in ("x", "y", "xo", "yo", "so", "response"):
+        np.testing.assert_allclose(g[name][v], r[name][v], atol=1e-4, err_msg=name)
+    for name in ("level", "octave"):
+        np.testing.assert_array_equal(g[name][v], r[name][v], err_msg=name)
+    np.testing.assert_allclose(g["sigma"][v], r["sigma"][v], rtol=1e-5)
+    return int(v.sum())
+
+
+@pytest.mark.parametrize("octave", [0, 1, 2])
+def test_detect_octave_matches_jax(pyramid, octave):
+    cfg, octs = pyramid
+    o = octs[octave]
+    ref = jdetect.detect_octave(jpyr.Octave(jnp.asarray(o.gauss), jnp.asarray(o.dog)),
+                                octave, cfg)
+    got = tdetect.detect_octave(tpyr.Octave(_t(o.gauss), _t(o.dog)), octave, cfg)
+    assert _assert_keypoints_close(got, ref) > (100 if octave == 0 else 5)
+
+
+def test_detect_matches_jax(pyramid):
+    """Every octave, then the global compaction to cfg.max_kpts by
+    |response| (ties to the lower lane, as lax.top_k)."""
+    cfg, octs = pyramid
+    ref = jdetect.detect([jpyr.Octave(jnp.asarray(o.gauss), jnp.asarray(o.dog))
+                          for o in octs], cfg)
+    got = tdetect.detect([tpyr.Octave(_t(o.gauss), _t(o.dog)) for o in octs], cfg)
+    assert got.x.shape == (cfg.max_kpts,)
+    assert _assert_keypoints_close(got, ref) > 200
+
+
+def test_empty_and_concat_keypoints_match_jax():
+    ref = jkp.concat_keypoints([jkp.empty_keypoints(5), jkp.empty_keypoints(3)])
+    got = tkp.concat_keypoints([tkp.empty_keypoints(5, "cpu"), tkp.empty_keypoints(3, "cpu")])
+    r, g = to_numpy(ref), to_numpy(got)
+    assert list(g) == list(r)
+    for name in r:
+        assert g[name].dtype == r[name].dtype and g[name].shape == (8,), name
+        np.testing.assert_array_equal(g[name], r[name], err_msg=name)
+    rng = np.random.default_rng(9)
+    parts = []
+    for k in (4, 7):
+        f = rng.normal(size=k).astype(np.float32)
+        i = rng.integers(0, 4, k).astype(np.int32)
+        parts.append(dict(x=f, y=f + 1, sigma=f + 2, response=f - 1, edgeness=f, octave=i,
+                          level=i + 1, xo=f, yo=f, so=f, valid=rng.random(k) > 0.5))
+    ref = jkp.concat_keypoints([jkp.Keypoints(**{n: jnp.asarray(a) for n, a in p.items()})
+                                for p in parts])
+    got = tkp.concat_keypoints([from_numpy(tkp.Keypoints, p) for p in parts])
+    r, g = to_numpy(ref), to_numpy(got)
+    for name in r:
+        np.testing.assert_array_equal(g[name], r[name], err_msg=name)

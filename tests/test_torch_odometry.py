@@ -60,9 +60,16 @@ def test_masked_median():
 
 
 def test_entry_points_raise_what_is_not_ported():
+    """Every entry point is ported: map_anchor builds its landmark map and
+    refuses keyframe-referenced tracking, as the reference's assert does
+    (here a ValueError, which `python -O` keeps)."""
     intr = np.array([200.0, 200.0, 160.0, 120.0], np.float32)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        MonoVO(intr, vo_cfg=VOConfig(map_anchor=True), device="cpu")
+    vo = MonoVO(intr, vo_cfg=VOConfig(map_anchor=True), device="cpu")
+    assert vo._lmap.pos.shape == (VOConfig().map_size, 3) and vo._map_inl is None
+    with pytest.raises(ValueError, match="track_ref"):
+        MonoVO(intr, vo_cfg=VOConfig(map_anchor=True, track_ref="keyframe"), device="cpu")
+    with pytest.raises(AssertionError, match="track_ref"):
+        jodo.MonoVO(intr, vo_cfg=JVOConfig(map_anchor=True, track_ref="keyframe"))
     # dist_ba is ported: without a process group it makes a one-rank one
     import torch.distributed as dist
     try:

@@ -3,8 +3,8 @@
 * The port imports neither jax, cv2 nor any module of the JAX package
   `cusift_tpu` (checked in a fresh interpreter that runs a tiny CPU
   match_pair, RGB-D pair alignment, SLAM run (sequential and chunked),
-  chunked stereo SLAM run, direct pyramid, a 4-frame MonoVO run with
-  keyframes, both SfM builders, essential, PnP and Sim(3) solves, imports
+  chunked stereo SLAM run, direct pyramid, 4-frame MonoVO runs with
+  keyframes and with the landmark map, both SfM builders, essential, PnP and Sim(3) solves, imports
   the CLI, the entry points, the distribution, data and I/O modules and
   spawns a rank (whose modules are checked too), and in one that imports
   `chip_smoke` and every module of the port): the machine with the GPU has
@@ -38,6 +38,7 @@ from cusift_tpu_torch.kernels import _build
 from cusift_tpu_torch.kernels import matcher as k2
 from cusift_tpu_torch.kernels import octave as k3
 from cusift_tpu_torch.kernels import sampler as k1
+from cusift_tpu_torch.kernels import segment as kseg
 from cusift_tpu_torch.models.sift import SiftFeatures, extract, extract_batch
 from cusift_tpu_torch.models.twoview import match_pair
 from cusift_tpu_torch.ops.match import Matches, match
@@ -97,6 +98,9 @@ mono = two_plane_sequence(4, 96, 128, seed=3, motion_scale=0.8)
 vo = MonoVO(mono.intr, cfg, vo_cfg=VOConfig(max_keyframes=4, kf_every=1), ba_window=3,
             device="cpu")
 assert len(vo.run(mono.images)[0]) == 4 and vo.n_kf >= 2
+vo = MonoVO(mono.intr, cfg, vo_cfg=VOConfig(max_keyframes=4, kf_every=1, map_anchor=True,
+                                            map_size=256), device="cpu")
+assert len(vo.run(mono.images)[0]) == 4 and "cusift_tpu_torch.models.monomap" in sys.modules
 rec = reconstruct_rgbd(seq.images, seq.depths, seq.intr, cfg,
                        ransac_cfg=RansacConfig(num_hypotheses=32), device="cpu")
 assert rec.poses_r.shape == (3, 3, 3)
@@ -140,7 +144,8 @@ for mod in ("config", "optim.lie", "optim.robust", "optim.ba", "optim.posegraph"
             "ops.pnp", "optim.sim3graph", "utils.image", "models.odometry", "models.sfm",
             "cli", "entry", "parallel.mesh", "parallel.sharded", "parallel.dist_ba",
             "parallel.dist_pg", "parallel.launch", "data.tum", "data.kitti", "data.disk",
-            "utils.logging", "utils.viz", "utils.native_loader", "utils.imgcodec"):
+            "utils.logging", "utils.viz", "utils.native_loader", "utils.imgcodec",
+            "models.monomap", "kernels.segment"):
     assert "cusift_tpu_torch." + mod in names, mod
 """ + _CHECK
 
@@ -165,12 +170,12 @@ def test_chip_smoke_imports_nothing_of_jax():
 
 def _zero_counts():
     k1.launches = k1.sep_launches = k1.ori_hist_launches = k1.desc_raw_launches = 0
-    k2.launches = k3.launches = 0
+    k2.launches = k3.launches = kseg.launches = 0
 
 
 def _counts():
     return (k1.launches, k1.sep_launches, k1.ori_hist_launches,
-            k1.desc_raw_launches, k2.launches, k3.launches)
+            k1.desc_raw_launches, k2.launches, k3.launches, kseg.launches)
 
 
 def test_cpu_tensors_launch_no_kernel(test_image):
@@ -178,7 +183,8 @@ def test_cpu_tensors_launch_no_kernel(test_image):
     cfg = SiftConfig(max_kpts=64, max_kpts_per_octave=32, num_octaves=2)
     f = extract(torch.from_numpy(test_image[:96, :128].copy()), cfg)
     match(f.desc, f.valid, f.desc, f.valid)
-    assert _counts() == (0,) * 6
+    kseg.segment_sum(f.desc, kseg.plan(f.octave, 4))
+    assert _counts() == (0,) * 7
 
 
 def test_wrappers_raise_on_a_device_without_kernel():
@@ -203,7 +209,7 @@ def test_cpu_samplers_match_default(test_image, sampler):
     ref = extract(img, SiftConfig(**kw))
     _zero_counts()
     got = extract(img, SiftConfig(**kw, sampler=sampler))
-    assert _counts() == (0,) * 6
+    assert _counts() == (0,) * 7
     assert int(ref.valid.sum()) > 10
     for name in ("x", "y", "sigma", "orientation", "valid"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
