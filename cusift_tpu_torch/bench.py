@@ -1,0 +1,230 @@
+"""Headline benchmark of the port: SIFT extract + match throughput on one
+GPU (the twin of the repository root's `bench.py`, which measures the JAX
+package on a TPU).
+
+    python -m cusift_tpu_torch.bench [--iters 50] [--batch 8] [--device cpu]
+
+Prints ONE JSON line on stdout: {"metric", "value", "unit", "vs_baseline"},
+with bench.py's metric name and baseline.  The first stderr line is
+nvidia-smi's name and power limit of the card; the last is bench.py's
+record of the run (`device` is the card's name), plus `power_limit` and
+each kernel's launches in one `step` and one `bstep`
+(`kernels.kernel_counts()`; a CPU run launches none).
+
+Metric (BASELINE.md): keypoints/s over the full extract+match pipeline on
+a 640x480 pair.  vs_baseline is measured against the CudaSift-class GPU
+figure reconstructed in BASELINE.md (~4k keypoints in ~5 ms on a GTX1080 =
+8e5 keypoints/s; [KNOWLEDGE-LOW] order-of-magnitude calibration, not a
+measurement of this card).
+
+The flags and defaults are bench.py's, plus --device ("cuda" unless asked
+for "cpu"; without a GPU the run stops with an error).  --conv-backend and
+--fused-tile-rows reach `SiftConfig` and steer only the TPU build: they
+change nothing here.  --profile writes a `torch.profiler` trace of the
+timed pair steps into ./trace.  `compile_s` and `batch_compile_s` are the
+first call's seconds, the kernels' nvcc build included when the library is
+not built yet.
+
+Timing method, bench.py's: queue `iters` calls, wait for the device once
+(`torch.cuda.synchronize()`), then read the counts; the batch is timed in
+two passes and the best is kept.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .config import MatchConfig, SiftConfig
+from .data.synthetic import warped_pair
+from .kernels import kernel_counts
+from .models.sift import extract, extract_batch
+from .ops.match import match
+from .utils.device import card_line, entry_device, synchronize
+
+BASELINE_KPTS_PER_S = 8.0e5
+
+# per-octave candidate budgets of bench.py's --max-kpts table
+# (bench.py:129-157): octave 0 heavily saturated, upper octaves trimmed
+_BUDGETS = {5120: (2560, 1280, 320, 96, 32), 5632: (2816, 1408, 352, 96, 32),
+            6144: (3072, 1536, 384, 96, 32), 6656: (3328, 1664, 416, 96, 32),
+            7168: (3584, 1792, 448, 96, 32), 4096: (2048, 1024, 256, 96, 32)}
+
+
+def bench_sift_config(max_kpts: int, upscale: bool, **variant) -> SiftConfig:
+    """bench.py's SiftConfig for a --max-kpts value: the capacity, half of
+    it as octave 0's budget and, for the tabled values, the scene-matched
+    per-octave budgets; `variant` carries the other flags' fields."""
+    budgets = _BUDGETS.get(max_kpts)
+    if budgets is None:
+        return SiftConfig(max_kpts=max_kpts, max_kpts_per_octave=max_kpts // 2,
+                          upscale=upscale, **variant)
+    return SiftConfig(max_kpts=max_kpts, max_kpts_per_octave=budgets[0],
+                      octave_budgets=budgets, upscale=upscale, **variant)
+
+
+def _counts_of(fn, *xs) -> tuple:
+    """fn(*xs) and the kernel launches it made, by wrapper."""
+    before = kernel_counts()
+    out = fn(*xs)
+    after = kernel_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m cusift_tpu_torch.bench",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--size", type=int, nargs=2, default=(480, 640))
+    ap.add_argument("--max-kpts", type=int, default=6144)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="frames per call for the headline batched pipeline "
+                         "(0 = use the two-frame pair step; must be 0 or >= 2: "
+                         "consecutive-pair matching needs at least two frames)")
+    ap.add_argument("--no-upscale", action="store_true",
+                    help="skip the 2x first octave (cv2/CudaSift extract it)")
+    ap.add_argument("--score-dtype", default="bf16", choices=("f32", "bf16"),
+                    help="extremum-score arithmetic (config.py score_dtype)")
+    ap.add_argument("--conv-backend", default="mxu2", choices=("auto", "mxu", "mxu2", "vpu"),
+                    help="the TPU's separable-conv layout (no effect here)")
+    ap.add_argument("--pyramid-impl", default="chain", choices=("chain", "direct"),
+                    help="octave level construction")
+    ap.add_argument("--fused-pyramid", default="auto",
+                    choices=("auto", "xla", "pallas", "pallas_hbm"),
+                    help="octave build: the blur chain, or kernel K3 (pallas, pallas_hbm)")
+    ap.add_argument("--fused-tile-rows", type=int, default=64,
+                    help="the TPU's row tile for pallas_hbm (no effect here)")
+    ap.add_argument("--desc-slot-factor", type=float, default=1.25,
+                    help="descriptor slots per candidate budget (config.py desc_slot_factor)")
+    ap.add_argument("--profile", action="store_true",
+                    help="capture a torch.profiler trace of the timed pair steps into ./trace")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the pipeline runs (default: the GPU)")
+    args = ap.parse_args(argv)
+    if args.batch == 1:
+        ap.error("--batch must be 0 (pair step) or >= 2 (consecutive-pair "
+                 "matching needs at least two frames)")
+    return args
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    dev = entry_device(args.device, "bench")
+    card = card_line(dev)
+    print(card, file=sys.stderr, flush=True)
+
+    h, w = args.size
+    # detail_octaves=4: octave-spaced texture bands (1/f-like spectrum, as
+    # in real photographs) so SIFT octaves above the first see extrema too
+    img_a, img_b, _ = warped_pair(h, w, seed=1, blobs=800, detail=0.25, detail_octaves=4)
+    variant = dict(score_dtype=args.score_dtype, conv_backend=args.conv_backend,
+                   pyramid_impl=args.pyramid_impl, fused_pyramid=args.fused_pyramid,
+                   fused_tile_rows=args.fused_tile_rows,
+                   desc_slot_factor=args.desc_slot_factor)
+    sift_cfg = bench_sift_config(args.max_kpts, not args.no_upscale, **variant)
+    match_cfg = MatchConfig()
+
+    def step(a, b):
+        fa = extract(a, sift_cfg)
+        fb = extract(b, sift_cfg)
+        m = match(fa.desc, fa.valid, fb.desc, fb.valid, match_cfg)
+        return fa.count, fb.count, m.ok.sum()
+
+    da = torch.from_numpy(img_a).to(dev)
+    db = torch.from_numpy(img_b).to(dev)
+
+    t0 = time.perf_counter()
+    out, step_launches = _counts_of(step, da, db)
+    n_a, n_b, n_m = (int(x) for x in out)    # waits for the device
+    compile_s = time.perf_counter() - t0
+
+    def timed_queue(fn, *xs, iters):
+        int(fn(*xs)[0])                      # warm, and wait
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn(*xs)
+        synchronize(dev)                     # the device queue is in order
+        int(out[0])
+        return (time.perf_counter() - t0) / iters
+
+    for _ in range(args.warmup):
+        int(step(da, db)[0])
+
+    prof = contextlib.nullcontext()
+    if args.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+    with prof:
+        pair_s = timed_queue(step, da, db, iters=args.iters)
+    if args.profile:
+        os.makedirs("trace", exist_ok=True)
+        prof.export_chrome_trace(os.path.join("trace", "bench_pair.json"))
+
+    result = {
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "power_limit": card.split(", ")[-1] if dev.type == "cuda" else None,
+        "compile_s": round(compile_s, 2),
+        "pair_ms": round(pair_s * 1e3, 3),
+        "kpts_a": n_a, "kpts_b": n_b, "matches": n_m,
+        "frames_per_s": round(2.0 / pair_s, 1),
+        "step_launches": step_launches,
+    }
+
+    # Headline: the batched streaming pipeline (extract a frame batch,
+    # ratio-match consecutive pairs, one wait).  `--batch 0` falls back
+    # to the pair-step number.
+    bsz = args.batch
+    if bsz:
+        stack = []
+        for s in range((bsz + 1) // 2):
+            a, b, _ = warped_pair(h, w, seed=s, blobs=800, detail=0.25, detail_octaves=4)
+            stack.extend([a, b])
+        bimgs = torch.from_numpy(np.stack(stack[:bsz])).to(dev)
+
+        def bstep(imgs):
+            f = extract_batch(imgs, sift_cfg)
+            ms = [match(f.desc[i], f.valid[i], f.desc[i + 1], f.valid[i + 1],
+                        match_cfg).ok.sum()
+                  for i in range(bsz - 1)]
+            return f.valid.sum(), torch.stack(ms)
+
+        t0 = time.perf_counter()
+        out, bstep_launches = _counts_of(bstep, bimgs)
+        total_kpts = int(out[0])
+        result["batch_compile_s"] = round(time.perf_counter() - t0, 2)
+        result["bstep_launches"] = bstep_launches
+        # two independent timing passes, best-of; both land in stderr
+        bs_runs = [timed_queue(bstep, bimgs, iters=max(args.iters // 4, 3))
+                   for _ in range(2)]
+        bs = min(bs_runs)
+        result["batch"] = bsz
+        result["batch_frame_ms_runs"] = [round(b / bsz * 1e3, 3) for b in bs_runs]
+        result["batch_frame_ms"] = round(bs / bsz * 1e3, 3)
+        result["batch_kpts_per_s"] = round(total_kpts / bs, 1)
+        value = total_kpts / bs
+    else:
+        value = (n_a + n_b) / pair_s
+
+    print(json.dumps(result), file=sys.stderr, flush=True)
+    headline = {
+        "metric": "sift_extract_match_keypoints_per_s_per_chip",
+        "value": round(value, 1),
+        "unit": "keypoints/s",
+        "vs_baseline": round(value / BASELINE_KPTS_PER_S, 3),
+    }
+    print(json.dumps(headline), flush=True)
+    return dict(result, **headline)
+
+
+if __name__ == "__main__":
+    main()

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.device import run_device
+
 
 def to_numpy(nt) -> dict:
     """{field: numpy array} of a NamedTuple of tensors (or array-likes)."""
@@ -30,16 +32,19 @@ def to_numpy(nt) -> dict:
     return out
 
 
-def from_numpy(cls, arrays: dict, device="cpu"):
-    """Build NamedTuple `cls` from {field: array} with tensors on `device`.
+def from_numpy(cls, arrays: dict, device=None):
+    """Build NamedTuple `cls` from {field: array} with tensors on `device`:
+    "cuda" unless the caller asks otherwise, and a `RuntimeError` without a
+    GPU (pass device="cpu" to build on the CPU; `utils/device.py`).
 
     Arrays are copied, so read-only inputs (numpy views of jax arrays)
     are accepted.
     """
+    dev = run_device(device, "from_numpy")
     fields = {}
     for name in cls._fields:
         a = np.array(arrays[name], copy=True)
-        fields[name] = torch.from_numpy(a).to(device)
+        fields[name] = torch.from_numpy(a).to(dev)
     return cls(**fields)
 
 

@@ -102,8 +102,9 @@ def per_size(results: list) -> dict:
 def ba_task(device, jobs: dict):
     """For each n in `jobs` (every n up to the rank count), on the first n
     ranks' 1 x n map mesh, what jobs[n] holds: `distributed_bundle_adjust`
-    of "parts" with "cfg", `window_ba_dist` of "window_args" (numpy) with
-    "window_cfg", `distributed_pg_optimize` of each (partitioned graph of
+    of "parts" with "cfg", `window_ba_dist` of "window_args" (numpy) and of
+    each entry of "windows" with "window_cfg", `distributed_pg_optimize` of
+    each (partitioned graph of
     numpy arrays, config) in "pg_jobs"; with this rank's kernel launches
     in the case.
     Returns {n: results} for the n that hold this rank."""
@@ -123,6 +124,9 @@ def ba_task(device, jobs: dict):
         if "window_args" in job:
             t = [torch.as_tensor(np.asarray(a), device=device) for a in job["window_args"]]
             res["window"] = window_ba_dist(*t, mesh, None, job.get("window_cfg"))
+        res["windows"] = [window_ba_dist(*(torch.as_tensor(np.asarray(a), device=device)
+                                           for a in args), mesh, None, job.get("window_cfg"))
+                          for args in job.get("windows", ())]
         res["pg"] = [distributed_pg_optimize(
             PoseGraph(*(torch.as_tensor(np.asarray(graph[k]), device=device)
                         for k in PoseGraph._fields)), mesh, cfg)

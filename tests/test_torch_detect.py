@@ -87,7 +87,7 @@ def test_topk_keypoints_ties_to_lower_index():
                   valid=rng.random(k) > 0.2)
     ref = jkp.topk_keypoints(jkp.Keypoints(**{n: jnp.asarray(a) for n, a in
                                               arrays.items()}), 20)
-    got = tkp.topk_keypoints(from_numpy(tkp.Keypoints, arrays), 20)
+    got = tkp.topk_keypoints(from_numpy(tkp.Keypoints, arrays, device="cpu"), 20)
     r, g = to_numpy(ref), to_numpy(got)
     for name in r:
         np.testing.assert_array_equal(g[name], r[name], err_msg=name)
@@ -190,7 +190,7 @@ def test_empty_and_concat_keypoints_match_jax():
                           level=i + 1, xo=f, yo=f, so=f, valid=rng.random(k) > 0.5))
     ref = jkp.concat_keypoints([jkp.Keypoints(**{n: jnp.asarray(a) for n, a in p.items()})
                                 for p in parts])
-    got = tkp.concat_keypoints([from_numpy(tkp.Keypoints, p) for p in parts])
+    got = tkp.concat_keypoints([from_numpy(tkp.Keypoints, p, device="cpu") for p in parts])
     r, g = to_numpy(ref), to_numpy(got)
     for name in r:
         np.testing.assert_array_equal(g[name], r[name], err_msg=name)

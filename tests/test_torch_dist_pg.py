@@ -8,14 +8,25 @@ rtol 1e-3 / atol 1e-4):
 * against the JAX package's `distributed_pg_optimize` (plain cost, as
   test_parallel.py runs it) on the ring of the
   port's pose-graph parity test (`pose_ring(n=20, drift=0.02, seed=1)`,
-  tests/test_torch_posegraph.py).  On test_parallel.py's ring the two
-  packages' single-device solves already differ by 1.1e-4 in a pose
-  (float32 LM over 10 iterations, the products summed in another order),
-  with or without sharding;
+  tests/test_torch_posegraph.py), and on test_parallel.py's ring at the
+  tolerance its float64 solve supports (below);
 * `partition_edges` equals the reference's array for array.
+
+On test_parallel.py's ring the two packages' single-device float32
+solves differ by 1.1e-4 in a translation, with or without sharding.  Both
+are held to a float64 solve of the ring (the port's `optimize` on float64
+tensors, which the JAX package's float64 solve matches to 2.1e-7): the
+port lies 2.77e-4 from it in a translation
+and 7.0e-5 in a rotation entry, the reference 1.92e-4 and 8.9e-5.  Float32
+LM over 10 iterations sums in another order in each package; the port is
+held to at most twice the reference's distance, and the two packages to
+each other within 5e-4, the sum of the two distances with a margin.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +35,7 @@ import torch
 
 from cusift_tpu.config import PoseGraphConfig as JPoseGraphConfig
 from cusift_tpu.optim.posegraph import PoseGraph as JPoseGraph
+from cusift_tpu.optim.posegraph import optimize as joptimize
 from cusift_tpu.parallel.dist_pg import distributed_pg_optimize as jdist_pg
 from cusift_tpu.parallel.dist_pg import partition_edges as jpartition
 from cusift_tpu.parallel.mesh import map_mesh as jmap_mesh
@@ -112,3 +124,91 @@ def test_distributed_pg_matches_reference(rings, ranks, name="l2"):
     ref = jdist_pg(g, jmap_mesh(n), JPoseGraphConfig(**dataclasses.asdict(CFGS[name])))
     assert float(ref.cost) < float(ref.initial_cost)
     _close(out["parity", name][0], ref.cost, ref.poses_r, ref.poses_t)
+
+
+# test_parallel.py's ring: each float32 solve's distance from the float64
+# one (read: 2.77e-4 for the port, 1.92e-4 for the reference), and the
+# packages' from each other
+F64_DIST = 4e-4
+CROSS_ATOL = 5e-4
+
+
+def _graph(ring, dtype=torch.float32):
+    xs = [torch.from_numpy(np.asarray(ring[k])) for k in _KEYS]
+    xs = [x.to(dtype) if x.is_floating_point() else x for x in xs]
+    return PoseGraph(*xs, torch.from_numpy(_weights(ring)).to(dtype))
+
+
+def _jgraph(ring, parts=None):
+    edges = parts or dict(edge_i=ring["edge_i"], edge_j=ring["edge_j"], meas_r=ring["meas_r"],
+                          meas_t=ring["meas_t"], weight=_weights(ring))
+    return JPoseGraph(poses_r=jnp.asarray(ring["init_r"]), poses_t=jnp.asarray(ring["init_t"]),
+                      **{k: jnp.asarray(v) for k, v in edges.items()})
+
+
+def _f64_dist(r, t, ref) -> float:
+    return max(float(np.abs(np.asarray(r, np.float64) - ref.poses_r.numpy()).max()),
+               float(np.abs(np.asarray(t, np.float64) - ref.poses_t.numpy()).max()))
+
+
+def test_ring_float32_solves_near_float64(rings):
+    """Open check 1: on test_parallel.py's ring the port's float32 solve is
+    no more than twice as far from the float64 solve as the reference's."""
+    ring, cfg = rings["parallel"], CFGS["l2"]
+    ref = optimize(_graph(ring, torch.float64), cfg)
+    assert ref.poses_t.dtype == torch.float64
+    port = optimize(_graph(ring), cfg)
+    jax_ = joptimize(_jgraph(ring), JPoseGraphConfig(**dataclasses.asdict(cfg)))
+    d_port = _f64_dist(port.poses_r, port.poses_t, ref)
+    d_jax = _f64_dist(jax_.poses_r, jax_.poses_t, ref)
+    assert d_port < F64_DIST and d_jax < F64_DIST, (d_port, d_jax)
+    assert d_port <= 2.0 * d_jax, (d_port, d_jax)
+    np.testing.assert_allclose(float(port.cost), float(ref.cost), rtol=1e-4)
+    np.testing.assert_allclose(float(jax_.cost), float(ref.cost), rtol=1e-4)
+
+
+_JAX_F64 = """
+import sys
+import numpy as np
+import jax.numpy as jnp
+from cusift_tpu.config import PoseGraphConfig
+from cusift_tpu.optim.posegraph import PoseGraph, optimize
+z = np.load(sys.argv[1])
+g = PoseGraph(**{k: jnp.asarray(z[k]) for k in PoseGraph._fields})
+out = optimize(g, PoseGraphConfig(max_iters=10, cg_iters=50))
+assert out.poses_t.dtype == jnp.float64, out.poses_t.dtype
+np.savez(sys.argv[2], r=np.asarray(out.poses_r), t=np.asarray(out.poses_t))
+"""
+
+
+def test_ring_float64_solve_shared_with_reference(rings, tmp_path):
+    """The float64 solve the float32 ones are held to is the packages'
+    common ground: the JAX package's float64 solve of the ring (a process
+    with JAX_ENABLE_X64) lies within 1e-6 of the port's (read: 2.1e-7)."""
+    ring = rings["parallel"]
+    src, dst = tmp_path / "ring.npz", tmp_path / "jax_f64.npz"
+    np.savez(src, poses_r=ring["init_r"].astype(np.float64),
+             poses_t=ring["init_t"].astype(np.float64), edge_i=ring["edge_i"],
+             edge_j=ring["edge_j"], meas_r=ring["meas_r"].astype(np.float64),
+             meas_t=ring["meas_t"].astype(np.float64),
+             weight=_weights(ring).astype(np.float64))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", _JAX_F64, str(src), str(dst)], check=True,
+                   timeout=120, env={**os.environ, "JAX_ENABLE_X64": "1", "JAX_PLATFORMS": "cpu",
+                                     "PYTHONPATH": root})
+    ref = optimize(_graph(ring, torch.float64), CFGS["l2"])
+    with np.load(dst) as z:
+        assert _f64_dist(z["r"], z["t"], ref) < 1e-6
+
+
+def test_distributed_pg_matches_reference_parallel_ring(rings, ranks):
+    """The cross-package sharded check on test_parallel.py's ring, at the
+    float64 reading's tolerance."""
+    n, out = ranks
+    ring = rings["parallel"]
+    ref = jdist_pg(_jgraph(ring, _parts(ring, n, jpartition)), jmap_mesh(n),
+                   JPoseGraphConfig(**dataclasses.asdict(CFGS["l2"])))
+    got = out["parallel", "l2"][0]
+    np.testing.assert_allclose(float(got.cost), float(ref.cost), rtol=1e-4)
+    np.testing.assert_allclose(got.poses_t.numpy(), np.asarray(ref.poses_t), atol=CROSS_ATOL)
+    np.testing.assert_allclose(got.poses_r.numpy(), np.asarray(ref.poses_r), atol=CROSS_ATOL)

@@ -54,7 +54,7 @@ def stages():
 
 
 def test_orientation_histograms_match_jax(stages):
-    kps = from_numpy(tkp.Keypoints, stages["kps"])
+    kps = from_numpy(tkp.Keypoints, stages["kps"], device="cpu")
     assert stages["kps"]["valid"].sum() > 50
     hist = tori.orientation_histograms(_t(stages["samp"]), kps, CFG, level_base=1)
     np.testing.assert_allclose(hist.numpy(), stages["hist"], rtol=1e-4, atol=1e-5)
@@ -68,7 +68,7 @@ def test_dominant_orientations_match_jax(stages):
 
 def test_compact_slots_match_jax(stages):
     """Both slots of a keypoint tie; the order must be lax.top_k's."""
-    kps = from_numpy(tkp.Keypoints, stages["kps"])
+    kps = from_numpy(tkp.Keypoints, stages["kps"], device="cpu")
     slots = tdesc.compact_slots(kps, _t(stages["theta"]), _t(stages["ok"]),
                                 CFG.desc_slots(0))
     got = to_numpy(slots)
@@ -77,7 +77,7 @@ def test_compact_slots_match_jax(stages):
 
 
 def test_descriptors_match_jax(stages):
-    slots = from_numpy(tdesc.Slots, stages["slots"])
+    slots = from_numpy(tdesc.Slots, stages["slots"], device="cpu")
     desc, slot_valid = tdesc.descriptors(_t(stages["samp"]), slots, CFG,
                                          level_base=1)
     np.testing.assert_array_equal(slot_valid.numpy(), stages["slot_valid"])

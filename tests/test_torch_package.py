@@ -18,7 +18,8 @@
 * The entry points take numpy input: it goes to the GPU unless the caller
   passes device="cpu", and without a GPU that is an error, not a quiet run
   on the CPU.
-* The numpy converter round-trips the inter-stage buffers.
+* The numpy converter round-trips the inter-stage buffers, and builds them
+  on the GPU unless asked for the CPU (an error without a GPU).
 * A missing nvcc is an error, not a fallback.
 """
 
@@ -145,7 +146,8 @@ for mod in ("config", "optim.lie", "optim.robust", "optim.ba", "optim.posegraph"
             "cli", "entry", "parallel.mesh", "parallel.sharded", "parallel.dist_ba",
             "parallel.dist_pg", "parallel.launch", "data.tum", "data.kitti", "data.disk",
             "utils.logging", "utils.viz", "utils.native_loader", "utils.imgcodec",
-            "models.monomap", "kernels.segment"):
+            "models.monomap", "kernels.segment", "bench", "scripts.stage_times",
+            "scripts.stereo_longrun", "scripts.endurance"):
     assert "cusift_tpu_torch." + mod in names, mod
 """ + _CHECK
 
@@ -259,12 +261,24 @@ def test_convert_round_trip():
                   ratio=rng.random(5).astype(np.float32),
                   ok=rng.random(5) > 0.5)
     arrays["idx"].setflags(write=False)          # numpy views of jax arrays
-    m = from_numpy(Matches, arrays)
+    m = from_numpy(Matches, arrays, device="cpu")
     assert m.ok.dtype == torch.bool and m.idx.dtype == torch.int32
     back = to_numpy(m)
     for name, a in arrays.items():
         np.testing.assert_array_equal(back[name], a)
     assert set(to_numpy(SiftFeatures(*([torch.zeros(2)] * 9)))) == set(SiftFeatures._fields)
+
+
+def test_from_numpy_without_gpu_raises(monkeypatch):
+    """`from_numpy` builds on the GPU unless asked for the CPU; without one
+    that is an error, never a quiet build on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arrays = dict(idx=np.zeros(3, np.int32), dist=np.zeros(3, np.float32),
+                  score=np.zeros(3, np.float32), ratio=np.zeros(3, np.float32),
+                  ok=np.zeros(3, bool))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_numpy(Matches, arrays)
+    assert from_numpy(Matches, arrays, device="cpu").ok.device.type == "cpu"
 
 
 def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):

@@ -22,14 +22,30 @@ solve split over the "map" axis of every rank (parallel/dist_ba.py).
   the frames after the two fixed ones move up to 0.0248; with 100 PCG
   rounds up to 0.0095.  The default-config bounds are those readings with
   a margin of about 1.5.
+* The reference's own 2-device run (tools/ref_dist_ba_drift.py: its Slam
+  with the window BA on 2 of the 8 virtual devices) does not move on its
+  own scene.  On the port's six windows both packages' 2-way solves equal
+  their single solves through the fifth (0 m) and first move in the
+  sixth, the last: the port's by 0.0383 m (the flipped accept), the
+  reference's by 4.6e-4 m.  That window is as sensitive in either
+  package: a 1e-7 relative change of the input translations moves the
+  reference's solve 0.0086 m and the port's 0.0144.
 """
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+
+import cusift_tpu_torch.models.slam as tslam
+from cusift_tpu.config import BAConfig as JBAConfig
+from cusift_tpu.config import MatchConfig as JMatchConfig
+from cusift_tpu.models.local_ba import window_ba as jwindow_ba
+from cusift_tpu.parallel.dist_ba import window_ba_dist as jwindow_ba_dist
+from cusift_tpu.parallel.mesh import map_mesh as jmap_mesh
 
 from cusift_tpu_torch import RansacConfig, SiftConfig, SlamConfig
 from cusift_tpu_torch.data.evaluation import ate_rmse
@@ -156,3 +172,54 @@ def test_vo_dist_two_ranks(mono, single_vo):
     ate_dist = ate_rmse(a["r"], a["t"], mono.poses_r, mono.poses_t, with_scale=True)
     ate_single = ate_rmse(r0, t0, mono.poses_r, mono.poses_t, with_scale=True)
     assert ate_dist <= max(2.5 * ate_single, 0.05 * path), (ate_dist, ate_single, path)
+
+
+def test_last_window_sensitivity_shared_with_reference(seq):
+    """Open check 3, where the packages part: every window BA of the
+    port's run solved by each package on 2 ranks (devices) and on one.
+    Both packages' 2-way solves equal their single solves through the
+    fifth window and first move in the sixth, the last, where a 1e-7
+    relative change of the input translations moves either package's
+    solve by about a centimetre.  There the port's rank partials flip an
+    LM accept and the reference's shards do not."""
+    windows = []
+    plain = tslam.window_ba
+
+    def captured(*args, **kw):
+        windows.append([a.numpy().copy() for a in args[:7]])
+        return plain(*args, **kw)
+
+    tslam.window_ba = captured
+    try:
+        slam, _ = _slam(seq)
+    finally:
+        tslam.window_ba = plain
+    assert len(windows) == 6
+    cfg = slam._ba_cfg
+    jcfg = JBAConfig(**dataclasses.asdict(cfg))
+
+    def port(xs):
+        return plain(*(torch.from_numpy(x) for x in xs), slam.match_cfg, cfg)[1].numpy()
+
+    def ref(xs, mesh=None):
+        xs = [jnp.asarray(x) for x in xs]
+        if mesh is None:
+            return np.asarray(jwindow_ba(*xs, JMatchConfig(), jcfg)[1])
+        return np.asarray(jwindow_ba_dist(*xs, mesh, JMatchConfig(), jcfg)[1])
+
+    out = launch.run(launch.ba_task, 2, args=({2: dict(windows=windows, window_cfg=cfg)},),
+                     device="cpu", timeout_s=120)
+    a, b = (rank[2]["windows"] for rank in out)
+    assert all(torch.equal(x[1], y[1]) for x, y in zip(a, b))
+    moved_port = [np.abs(x[1].numpy() - port(w)).max() for x, w in zip(a, windows)]
+    moved_ref = [np.abs(ref(w, jmap_mesh(2)) - ref(w)).max() for w in windows]
+    assert max(moved_port[:5]) < 1e-6 and max(moved_ref[:5]) < 1e-6, (moved_port, moved_ref)
+    assert moved_port[5] > 1e-2, moved_port                     # read: 0.0383
+    assert 1e-4 < moved_ref[5] < 1e-3, moved_ref                # read: 4.6e-4
+
+    args = windows[-1]
+    nudged = list(args)
+    nudged[4] = args[4] * np.float32(1 + 1e-7)         # the translations
+    moved_ref = np.abs(ref(nudged) - ref(args)).max()           # read: 0.0086
+    moved_port = np.abs(port(nudged) - port(args)).max()        # read: 0.0144
+    assert moved_ref > 1e-3 and moved_port > 1e-3, (moved_ref, moved_port)
