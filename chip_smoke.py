@@ -137,10 +137,12 @@ Phases (one line each; any failure raises and exits non-zero):
      against its plain version, timed;
  29. the segment-sum kernel at the inputs phases 20, 21 and 28 gave it
      (the Sim(3) CG's scatter, SfM BA's camera and landmark sums, the
-     landmark refinement's): equal bit for bit to its plain version, the
-     CPU's `index_add_`, on the same inputs, and within 1e-4 of each
-     segment's sum of |x| of `index_add_` on the card (atomics), timed
-     beside it and beside `index_put_(accumulate=True)`;
+     landmark refinement's) and at two synthetic ones (a 4,096-row single
+     segment at d = 3; 100,000 rows into 10,000 segments at d = 6): equal
+     bit for bit to its plain version, the CPU's `index_add_`, on the
+     same inputs, a rerun bit for bit, and within 1e-4 of each segment's
+     sum of |x| of `index_add_` on the card (atomics), timed beside it and
+     beside `index_put_(accumulate=True)`, with its longest segment;
  30. the bench twin, `python -m cusift_tpu_torch.bench --iters 10` as a
      subprocess, at its defaults and with `--fused-pyramid pallas_hbm`:
      bench.py's metric line last (a value > 0), its stderr record with
@@ -2077,27 +2079,48 @@ def check_matcher_map(dev, calls) -> dict:
 SEGMENT_REL = 1e-4   # of each segment's sum of |x|: the card's atomics add in another order
 
 
+def segment_synthetic(dev) -> dict:
+    """Phase 29's two inputs beside the paths': a 4,096-row single segment
+    at d = 3 (a chain that streams through the block's chunks), and
+    100,000 rows into 10,000 segments at d = 6 (SfM at scale: BA's
+    observations onto its landmarks), from seed 29."""
+    from cusift_tpu_torch.kernels import segment
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out = {}
+    for tag, (rows, n, d) in {"synthetic single segment": (4096, 1, 3),
+                              "synthetic sfm scale": (100_000, 10_000, 6)}.items():
+        idx = torch.randint(0, n, (rows,), generator=gen, device=dev)
+        x = torch.randn(rows, d, generator=gen, device=dev)
+        out[tag] = (x, segment.plan(idx, n))
+    return out
+
+
 def check_segment(dev, calls: dict) -> dict:
-    """Phase 29: the segment-sum kernel at each input a path gave it,
-    against its plain version (`index_add_`) on the same inputs: on the
-    CPU, whose order of adds it repeats, bit for bit (`max_abs_err`); on
-    the card, whose atomics add in another order, within SEGMENT_REL of
-    each segment's sum of |x| (`atomics_rel_err`).  Timed beside
-    `index_add_` on the card and beside `index_put_(accumulate=True)`;
-    bound by the bytes of x, the indices and the output."""
+    """Phase 29: the segment-sum kernel at each input a path gave it, and
+    at `segment_synthetic`'s, against its plain version (`index_add_`) on
+    the same inputs: on the CPU, whose order of adds it repeats, bit for
+    bit (`max_abs_err`), and a rerun bit for bit; on the card, whose
+    atomics add in another order, within SEGMENT_REL of each segment's
+    sum of |x| (`atomics_rel_err`).  Timed beside `index_add_` on the
+    card and beside `index_put_(accumulate=True)`; bound by the bytes of
+    x, the indices and the output."""
     from cusift_tpu_torch.kernels import segment
 
     out = {}
     for tag, (x, p) in calls.items():
         got = segment.segment_sum(x, p)
+        again = segment.segment_sum(x, p)
         plain = segment.segment_sum_plain(x, p)
         cpu = segment.segment_sum_plain(x.cpu(), segment.plan(p.idx.cpu(), p.n))
         scale = segment.segment_sum_plain(x.abs(), p) + 1e-30
         torch.cuda.synchronize()
         err = float((got.cpu() - cpu).abs().max()) if got.numel() else 0.0
         rel = float(((got - plain).abs() / scale).max()) if got.numel() else 0.0
-        if not torch.equal(got.cpu(), cpu) or not rel <= SEGMENT_REL:
+        if (not torch.equal(got.cpu(), cpu) or not torch.equal(got, again)
+                or not rel <= SEGMENT_REL):
             raise AssertionError(f"segment {tag}: max |kernel - CPU index_add_| {err}, "
+                                 f"rerun equal {torch.equal(got, again)}, "
                                  f"against the card's atomics {rel} of sum |x|")
         zeros = x.new_zeros(got.shape)
         ms = time_ms(lambda: segment.segment_sum(x, p), f"segment {tag}")
@@ -2111,7 +2134,8 @@ def check_segment(dev, calls: dict) -> dict:
                         max_abs_err=err, atomics_rel_err=rel, ms=ms, plain_ms=plain_ms,
                         library_ms=library_ms, **b)
         log("segment", case=tag, shape=f"R{rows},d{d},n{p.n}", longest=seg_len,
-            max_abs_err_vs_cpu=err, atomics_rel_err=rel, ms=f"{ms:.4f}",
+            bit_equal_cpu=True, rerun_equal=True, max_abs_err_vs_cpu=err,
+            atomics_rel_err=rel, ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
             bound_ms=f"{b['bound_ms']:.6f}", card=json.dumps(smi_line()))
     return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), calls=out)
@@ -2773,7 +2797,8 @@ def main() -> int:
     mvo = map_vo_path(dev, stereo_seq, vo)
     k2_map = check_matcher_map(dev, mvo["k2_in"])
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_map["max_abs_err"])
-    seg = check_segment(dev, {**mvo["segment_in"], **sfm["segment_in"], **vo["segment_in"]})
+    seg = check_segment(dev, {**mvo["segment_in"], **sfm["segment_in"], **vo["segment_in"],
+                              **segment_synthetic(dev)})
     log("phases 28-29", seconds=f"{time.perf_counter() - t0:.3f}")
     t0 = time.perf_counter()
     entries = entry_points(dev)

@@ -49,8 +49,9 @@ SIGNATURES = {
     #     H, W, band_rows, window_rows, vbuf_stride, smem_bytes, prefilter,
     #     stream
     "cusift_fused_octave": ((_P,) * 6 + (_I,) * 9 + (_F, _P), _I),
-    # segment sum: x, order, offsets, out, n, d, double_precision, stream
-    "cusift_segment_sum": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
+    # segment sum: x, order, seg, ends, blocks, out, rows, n, d, nb, tile,
+    #     d_tile, chunk, threads, smem, double_precision, stream
+    "cusift_segment_sum": ((_P,) * 6 + (_I,) * 10 + (_P,), _I),
 }
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"

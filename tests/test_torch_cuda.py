@@ -852,18 +852,23 @@ def test_mono_vo_on_the_card(dev):
 SEGMENT_SHAPES = {"ba_cam": (3000, 10, (6, 6)), "ba_pt": (3000, 1200, (3, 3)),
                   "posegraph": (144, 24, (6,)), "sim3": (256, 40, (7,)),
                   "monomap": (2048, 8192, (3,)), "monomap_cnt": (2048, 8192, ()),
-                  "f64": (500, 7, (2,)), "empty": (0, 5, (3,))}
+                  "f64": (500, 7, (2,)), "empty": (0, 5, (3,)),
+                  "long": (4096, 1, (3,)), "long_d36": (4096, 2, (36,)),
+                  "f64_long": (4096, 1, (3,)), "f64_d36": (3000, 10, (6, 6)),
+                  "wide": (1000, 20, (100,))}
 
 
 @pytest.mark.parametrize("name", sorted(SEGMENT_SHAPES))
 def test_segment_kernel_matches_cpu(dev, name):
     """The segment-sum kernel against the CPU's `index_add_` on the same
     inputs: the same order of adds (tests/test_torch_segment.py replays
-    it), so equal bit for bit; and a rerun equal bit for bit."""
+    it), so equal bit for bit; and a rerun equal bit for bit.  Among them
+    a 4,096-row segment (streamed through the block's chunks), d = 36 in
+    float32 and float64, and 100 columns (column tiles)."""
     from cusift_tpu_torch.kernels import segment
 
     rows, n, tail = SEGMENT_SHAPES[name]
-    dtype = np.float64 if name == "f64" else np.float32
+    dtype = np.float64 if name.startswith("f64") else np.float32
     rng = np.random.default_rng(len(name))
     idx = torch.from_numpy(rng.integers(0, n, rows))
     x = torch.from_numpy(rng.normal(size=(rows,) + tail).astype(dtype))
@@ -876,6 +881,40 @@ def test_segment_kernel_matches_cpu(dev, name):
     assert segment.launches == before + (2 if rows else 0)
     assert torch.equal(got, again)
     assert got.dtype == ref.dtype and torch.equal(got.cpu(), ref)
+
+
+def test_segment_kernel_drops_rows_outside(dev):
+    """Rows whose index lies outside [0, n) are left out on the card: the
+    sums of the kept rows, bit for bit, and 0 where no row is kept."""
+    from cusift_tpu_torch.kernels import segment
+
+    rng = np.random.default_rng(11)
+    n = 60
+    idx = torch.from_numpy(rng.integers(-3, n + 3, 3000))
+    x = torch.from_numpy(rng.normal(size=(3000, 6)).astype(np.float32))
+    keep = (idx >= 0) & (idx < n)
+    ref = torch.zeros(n, 6).index_add_(0, idx[keep], x[keep])
+    got = segment.segment_sum(x.to(dev), segment.plan(idx.to(dev), n))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_segment_kernel_trailing_empty_segments(dev):
+    """The map refinement's layout: 2,048 rows on the first 512 of 8,192
+    segments, 402 on one; the trailing segments, which no block owns, are
+    0; bit for bit against the CPU at d = 1 and 3."""
+    from cusift_tpu_torch.kernels import segment
+
+    rng = np.random.default_rng(12)
+    idx = torch.from_numpy(rng.permutation(np.concatenate([np.zeros(402, np.int64),
+                                                           rng.integers(1, 512, 1646)])))
+    p = segment.plan(idx.to(dev), 8192)
+    for tail in ((), (3,)):
+        x = torch.from_numpy(rng.normal(size=(2048,) + tail).astype(np.float32))
+        ref = torch.zeros((8192,) + tail).index_add_(0, idx, x)
+        got = segment.segment_sum(x.to(dev), p)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref)
 
 
 def _sfm_like_problem(dev):
