@@ -8,7 +8,14 @@
 //   * coordinates are clipped to [0, h - 1.000001];
 //   * y0 = min(floor(y), h - 2), x0 = min(floor(x), w - 2);
 //   * gradients are zero on the first and last row and column;
-//   * the level index is clipped to [0, L - 1].
+//   * the level index is clipped to [0, L - 1] within the slot's frame.
+// Every kernel takes a batch of B frames: the level stack gauss [B, L, H, W]
+// and per-frame slots, slot n of the B * N being slot n % N of frame n / N,
+// whose level plane is frame * L + clip(lvl, 0, L - 1).  This is the
+// counterpart of the TPU kernels' batched grid (the frame axis that
+// pallas_call's batching rule adds under jax.vmap): one launch serves the
+// batch, and each slot computes what a launch over its frame alone would,
+// bit for bit, since no slot reads another's results.
 // K4 and K5 sample through sample_grad; K1 and K6 through grad_12, the
 // same values from fewer loads.  Everything is f32: the TPU kernels' bf16
 // dots were a trade for the MXU's rate, and their polynomial atan2 stood in
@@ -186,10 +193,12 @@ __device__ __forceinline__ bool sample_grad_12(const float* __restrict__ g, int 
   return ay.in && ax.in;
 }
 
+// The level plane of slot n (of B * N) in a [B, L, h, w] stack: the slot's
+// level, clipped within its frame n / N.
 __device__ __forceinline__ const float* level(const float* gauss, const int32_t* lvl,
-                                              int n, int L, int h, int w) {
+                                              int n, int N, int L, int h, int w) {
   const int l = min(max(lvl[n], 0), L - 1);
-  return gauss + (size_t)l * h * w;
+  return gauss + ((size_t)(n / N) * L + l) * h * w;
 }
 
 // x mod n into [0, n), floor-based like the reference's _fmod_pos.
@@ -212,10 +221,10 @@ sample_grad_kernel(const float* __restrict__ gauss,
                    float* __restrict__ dx,
                    float* __restrict__ dy,
                    uint8_t* __restrict__ inb,
-                   int L, int h, int w, long long total, int S) {
+                   int L, int h, int w, int N, long long total, int S) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  const float* g = level(gauss, lvl, (int)(i / S), L, h, w);
+  const float* g = level(gauss, lvl, (int)(i / S), N, L, h, w);
   float vx, vy;
   inb[i] = sample_grad_12(g, h, w, ys[i], xs[i], &vx, &vy);
   dx[i] = vx;
@@ -223,7 +232,8 @@ sample_grad_kernel(const float* __restrict__ gauss,
 }
 
 // K6: a thread per sample, in output order, so the stores coalesce; the
-// index is 32-bit (the wrapper keeps N * GR * GC and L * H * W under 2^31).
+// index is 32-bit (the wrapper keeps B * N * GR * GC and B * L * H * W
+// under 2^31).  n is the slot of the B * N, frame n / N.
 // A warp's samples lie on about three rows and twelve columns of one slot,
 // so their loads of ys_rows and xs_cols are broadcasts.
 __global__ void __launch_bounds__(kSepThreads)
@@ -234,17 +244,17 @@ sample_grad_sep_kernel(const float* __restrict__ gauss,
                        float* __restrict__ dx,
                        float* __restrict__ dy,
                        uint8_t* __restrict__ inb,
-                       int L, int h, int w, int N, int GR, int GC) {
+                       int L, int h, int w, int B, int N, int GR, int GC) {
   const int S = GR * GC;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * S) return;
+  if (i >= B * N * S) return;
   const int n = i / S, rc = i - n * S;
   const int r = rc / GC, c = rc - r * GC;
-  const int l = min(max(lvl[n], 0), L - 1);
+  const int plane = (n / N) * L + min(max(lvl[n], 0), L - 1);
   const Axis ay = axis(ys_rows[n * GR + r], h), ax = axis(xs_cols[n * GC + c], w);
   float vx, vy;
-  grad_12(gauss + (l * h * w + ay.i0 * w + ax.i0), w, ay.lo, ay.hi, ax.lo, ax.hi, ay.f, ax.f,
-          &vx, &vy);
+  grad_12(gauss + (plane * h * w + ay.i0 * w + ax.i0), w, ay.lo, ay.hi, ax.lo, ax.hi, ay.f,
+          ax.f, &vx, &vy);
   dx[i] = vx;
   dy[i] = vy;
   inb[i] = ay.in && ax.in;
@@ -287,7 +297,7 @@ template <bool kDesc>
 __device__ __forceinline__ void bin_chunk(const float* gauss, const int32_t* lvl,
                                           const float* ys, const float* xs,
                                           const float* wv, const float* theta,
-                                          int L, int h, int w, int S, int nb,
+                                          int L, int h, int w, int N, int S, int nb,
                                           int n0, int np, int c0, int cn, int chunk,
                                           float4* rec) {
   for (int i = threadIdx.x; i < np * cn; i += blockDim.x) {
@@ -296,10 +306,10 @@ __device__ __forceinline__ void bin_chunk(const float* gauss, const int32_t* lvl
     const size_t row = (size_t)n * S + c0 + s;
     float fb, wg;
     if (kDesc)
-      polar_sample(level(gauss, lvl, n, L, h, w), h, w, ys[row], xs[row], wv[row],
+      polar_sample(level(gauss, lvl, n, N, L, h, w), h, w, ys[row], xs[row], wv[row],
                    theta[n], -1.0f, nb, &fb, &wg);
     else
-      polar_sample(level(gauss, lvl, n, L, h, w), h, w, ys[row], xs[row], wv[row],
+      polar_sample(level(gauss, lvl, n, N, L, h, w), h, w, ys[row], xs[row], wv[row],
                    0.0f, 1.0f, nb, &fb, &wg);
     const int l = lower_bin(fb, nb);
     const float s0 = soft_bin(fb, (float)l, (float)nb);
@@ -319,15 +329,16 @@ __global__ void __launch_bounds__(kSlotThreads)
 ori_hist_kernel(const float* __restrict__ gauss, const int32_t* __restrict__ lvl,
                 const float* __restrict__ ys, const float* __restrict__ xs,
                 const float* __restrict__ wv, float* __restrict__ hist,
-                int L, int h, int w, int N, int S, int nb, int slots, int chunk) {
+                int L, int h, int w, int N, int total, int S, int nb, int slots,
+                int chunk) {
   extern __shared__ float4 sm4[];
   float4* rec = sm4;
   const int n0 = blockIdx.x * slots;
-  const int np = min(slots, N - n0);
+  const int np = min(slots, total - n0);
   float* out = hist + (size_t)n0 * nb;
   for (int c0 = 0; c0 < S; c0 += chunk) {
     const int cn = min(chunk, S - c0);
-    bin_chunk<false>(gauss, lvl, ys, xs, wv, nullptr, L, h, w, S, nb, n0, np, c0, cn,
+    bin_chunk<false>(gauss, lvl, ys, xs, wv, nullptr, L, h, w, N, S, nb, n0, np, c0, cn,
                      chunk, rec);
     __syncthreads();
     for (int o = threadIdx.x; o < np * nb; o += blockDim.x) {
@@ -389,7 +400,7 @@ desc_raw_kernel(const float* __restrict__ gauss, const int32_t* __restrict__ lvl
                 const float* __restrict__ ys, const float* __restrict__ xs,
                 const float* __restrict__ theta, const float* __restrict__ wv,
                 const float* __restrict__ wsp, float* __restrict__ raw,
-                int L, int h, int w, int N, int S, int nb, int cells,
+                int L, int h, int w, int N, int total, int S, int nb, int cells,
                 int slots, int chunk) {
   extern __shared__ float4 sm4[];
   float4* rec = sm4;
@@ -397,13 +408,13 @@ desc_raw_kernel(const float* __restrict__ gauss, const int32_t* __restrict__ lvl
   const int pitch = list_pitch(chunk);
   int* len = reinterpret_cast<int*>(lst + cells * pitch);
   const int n0 = blockIdx.x * slots;
-  const int np = min(slots, N - n0);
+  const int np = min(slots, total - n0);
   const int outs = nb * cells;
   float* out = raw + (size_t)n0 * outs;
   for (int c0 = 0; c0 < S; c0 += chunk) {
     const int cn = min(chunk, S - c0);
     spatial_lists(wsp + (size_t)c0 * cells, cn, cells, pitch, lst, len);
-    bin_chunk<true>(gauss, lvl, ys, xs, wv, theta, L, h, w, S, nb, n0, np, c0, cn,
+    bin_chunk<true>(gauss, lvl, ys, xs, wv, theta, L, h, w, N, S, nb, n0, np, c0, cn,
                     chunk, rec);
     __syncthreads();
     // o runs (slot, cell, bin), bin fastest: the lanes of one (slot, cell)
@@ -438,44 +449,49 @@ unsigned blocks_for(long long total, int threads) {
 
 }  // namespace
 
+// Every entry point takes B frames of N slots each: gauss [B, L, H, W],
+// per-slot inputs and outputs [B, N, ...].
+
 extern "C" int cusift_sample_grad_patches(const void* gauss, const void* lvl,
                                           const void* ys, const void* xs,
                                           void* dx, void* dy, void* inb,
-                                          int L, int H, int W, int N, int S,
+                                          int L, int H, int W, int B, int N, int S,
                                           void* stream) {
-  const long long total = (long long)N * S;
+  const long long total = (long long)B * N * S;
   sample_grad_kernel<<<blocks_for(total, kSampleThreads), kSampleThreads, 0,
                        (cudaStream_t)stream>>>(
       (const float*)gauss, (const int32_t*)lvl, (const float*)ys,
       (const float*)xs, (float*)dx, (float*)dy, (uint8_t*)inb,
-      L, H, W, total, S);
+      L, H, W, N, total, S);
   return (int)cudaGetLastError();
 }
 
 extern "C" int cusift_sample_grad_patches_sep(const void* gauss, const void* lvl,
                                               const void* ys_rows, const void* xs_cols,
                                               void* dx, void* dy, void* inb,
-                                              int L, int H, int W, int N, int GR, int GC,
-                                              void* stream) {
-  sample_grad_sep_kernel<<<blocks_for((long long)N * GR * GC, kSepThreads), kSepThreads, 0,
-                           (cudaStream_t)stream>>>(
+                                              int L, int H, int W, int B, int N, int GR,
+                                              int GC, void* stream) {
+  sample_grad_sep_kernel<<<blocks_for((long long)B * N * GR * GC, kSepThreads), kSepThreads,
+                           0, (cudaStream_t)stream>>>(
       (const float*)gauss, (const int32_t*)lvl, (const float*)ys_rows,
       (const float*)xs_cols, (float*)dx, (float*)dy, (uint8_t*)inb,
-      L, H, W, N, GR, GC);
+      L, H, W, B, N, GR, GC);
   return (int)cudaGetLastError();
 }
 
-// K4 and K5 take their plan from kernels/sampler.py:_launch_plan: SLOTS
-// slots per block of THREADS threads, samples in chunks of CHUNK, SMEM
-// bytes of dynamic shared memory (at most 48 KB, so no opt-in).
+// K4 and K5 take their plan from kernels/sampler.py:_launch_plan over the
+// B * N slots: SLOTS slots per block of THREADS threads (a block's slots
+// may span two frames), samples in chunks of CHUNK, SMEM bytes of dynamic
+// shared memory (at most 48 KB, so no opt-in).
 extern "C" int cusift_sample_ori_hist(const void* gauss, const void* lvl,
                                       const void* ys, const void* xs, const void* wv,
-                                      void* hist, int L, int H, int W, int N, int S,
-                                      int NB, int SLOTS, int CHUNK, int THREADS,
+                                      void* hist, int L, int H, int W, int B, int N,
+                                      int S, int NB, int SLOTS, int CHUNK, int THREADS,
                                       int SMEM, void* stream) {
-  ori_hist_kernel<<<blocks_for(N, SLOTS), THREADS, SMEM, (cudaStream_t)stream>>>(
+  const int total = B * N;
+  ori_hist_kernel<<<blocks_for(total, SLOTS), THREADS, SMEM, (cudaStream_t)stream>>>(
       (const float*)gauss, (const int32_t*)lvl, (const float*)ys, (const float*)xs,
-      (const float*)wv, (float*)hist, L, H, W, N, S, NB, SLOTS, CHUNK);
+      (const float*)wv, (float*)hist, L, H, W, N, total, S, NB, SLOTS, CHUNK);
   return (int)cudaGetLastError();
 }
 
@@ -483,12 +499,13 @@ extern "C" int cusift_sample_desc_raw(const void* gauss, const void* lvl,
                                       const void* ys, const void* xs,
                                       const void* theta, const void* wv,
                                       const void* w_spatial, void* raw,
-                                      int L, int H, int W, int N, int S, int NB,
+                                      int L, int H, int W, int B, int N, int S, int NB,
                                       int CELLS, int SLOTS, int CHUNK, int THREADS,
                                       int SMEM, void* stream) {
-  desc_raw_kernel<<<blocks_for(N, SLOTS), THREADS, SMEM, (cudaStream_t)stream>>>(
+  const int total = B * N;
+  desc_raw_kernel<<<blocks_for(total, SLOTS), THREADS, SMEM, (cudaStream_t)stream>>>(
       (const float*)gauss, (const int32_t*)lvl, (const float*)ys, (const float*)xs,
       (const float*)theta, (const float*)wv, (const float*)w_spatial, (float*)raw,
-      L, H, W, N, S, NB, CELLS, SLOTS, CHUNK);
+      L, H, W, N, total, S, NB, CELLS, SLOTS, CHUNK);
   return (int)cudaGetLastError();
 }

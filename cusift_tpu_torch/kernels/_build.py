@@ -32,16 +32,18 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # returns its cudaError_t as an int.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    # K1: gauss, lvl, ys, xs, dx, dy, inb, L, H, W, N, S, stream
-    "cusift_sample_grad_patches": ((_P,) * 7 + (_I,) * 5 + (_P,), _I),
-    # K6: gauss, lvl, ys_rows, xs_cols, dx, dy, inb, L, H, W, N, GR, GC, stream
-    "cusift_sample_grad_patches_sep": ((_P,) * 7 + (_I,) * 6 + (_P,), _I),
-    # K4: gauss, lvl, ys, xs, wv, hist, L, H, W, N, S, NB, SLOTS, CHUNK,
+    # K1, K4-K6 take B frames of N slots each
+    # K1: gauss, lvl, ys, xs, dx, dy, inb, L, H, W, B, N, S, stream
+    "cusift_sample_grad_patches": ((_P,) * 7 + (_I,) * 6 + (_P,), _I),
+    # K6: gauss, lvl, ys_rows, xs_cols, dx, dy, inb, L, H, W, B, N, GR, GC,
+    #     stream
+    "cusift_sample_grad_patches_sep": ((_P,) * 7 + (_I,) * 7 + (_P,), _I),
+    # K4: gauss, lvl, ys, xs, wv, hist, L, H, W, B, N, S, NB, SLOTS, CHUNK,
     #     THREADS, SMEM, stream
-    "cusift_sample_ori_hist": ((_P,) * 6 + (_I,) * 10 + (_P,), _I),
-    # K5: gauss, lvl, ys, xs, theta, wv, w_spatial, raw, L, H, W, N, S, NB,
-    #     CELLS, SLOTS, CHUNK, THREADS, SMEM, stream
-    "cusift_sample_desc_raw": ((_P,) * 8 + (_I,) * 11 + (_P,), _I),
+    "cusift_sample_ori_hist": ((_P,) * 6 + (_I,) * 11 + (_P,), _I),
+    # K5: gauss, lvl, ys, xs, theta, wv, w_spatial, raw, L, H, W, B, N, S,
+    #     NB, CELLS, SLOTS, CHUNK, THREADS, SMEM, stream
+    "cusift_sample_desc_raw": ((_P,) * 8 + (_I,) * 12 + (_P,), _I),
     # K2: a, b, valid_b, top, idx, part_top, part_idx, N, M, D, P,
     #     cols_per_split, stream
     "cusift_match_top2": ((_P,) * 7 + (_I,) * 5 + (_P,), _I),

@@ -29,9 +29,15 @@ packs several slots into a block, so that every thread has samples to
 bin and outputs to own, and cuts the samples into chunks that fit 48 KB
 of shared memory; see the source's header for the design.
 
+Each kernel takes a batch of frames, as the TPU kernels' grid does under
+`jax.vmap`: the level stacks [B, L, H, W] and each frame's slots [B, N, ...]
+in one launch, a slot's level clipped within its frame.  A [L, H, W] stack
+with [N, ...] slots is the B = 1 case.
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-`*_plain` version, the same math in plain torch, which is also what the
-tests and `chip_smoke.py` hold the kernel against.
+`*_plain` version, the same math in plain torch over any leading frame
+axes, which is also what the tests and `chip_smoke.py` hold the kernel
+against.
 """
 
 from __future__ import annotations
@@ -51,17 +57,27 @@ ori_hist_launches = 0      # K4 sample_ori_hist
 desc_raw_launches = 0      # K5 sample_desc_raw
 
 
+def _planes(lvl: torch.Tensor, nlev: int) -> torch.Tensor:
+    """Plane of each slot [..., N] in its stack's frames flattened to
+    [B * L]: frame * L + lvl clipped to [0, L - 1], so a level is clipped
+    within its own frame (vmap gives each frame its own [L, H, W])."""
+    frames = torch.arange(math.prod(lvl.shape[:-1]), device=lvl.device)
+    return (frames.reshape(lvl.shape[:-1] + (1,)) * nlev
+            + lvl.to(torch.int64).clamp(0, nlev - 1))
+
+
 def bilinear_sample_pair(stack2: torch.Tensor, lvl: torch.Tensor,
                          ys: torch.Tensor, xs: torch.Tensor):
-    """Bilinear-sample two channels of stack2 [L, H, W, 2] at (ys, xs).
+    """Bilinear-sample two channels of stack2 [..., L, H, W, 2] at (ys, xs).
 
-    lvl: [N] int; ys, xs: [N, S] float32.  Returns (v0 [N, S], v1 [N, S],
-    in_bounds [N, S]).  Indices are clamped like the reference's
-    `GatherScatterMode.CLIP`.  A NaN point (a dead slot whose refined
-    scale overflowed) samples (0, 0) and is out of bounds, as in the
-    kernels, whose fmaxf drops the NaN.
+    lvl: [..., N] int; ys, xs: [..., N, S] float32, with the stack's
+    leading (frame) axes.  Returns (v0 [..., N, S], v1 [..., N, S],
+    in_bounds [..., N, S]).  Indices are clamped like the reference's
+    `GatherScatterMode.CLIP`, the level within the slot's frame.  A NaN
+    point (a dead slot whose refined scale overflowed) samples (0, 0) and
+    is out of bounds, as in the kernels, whose fmaxf drops the NaN.
     """
-    l, h, w, _ = stack2.shape
+    l, h, w, _ = stack2.shape[-4:]
     inb = (ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1)
     ys = ys.nan_to_num(0.0).clamp(0.0, h - 1.000001)
     xs = xs.nan_to_num(0.0).clamp(0.0, w - 1.000001)
@@ -69,11 +85,12 @@ def bilinear_sample_pair(stack2: torch.Tensor, lvl: torch.Tensor,
     x0 = torch.floor(xs).to(torch.int64).clamp(max=w - 2)
     fy = (ys - y0)[..., None]
     fx = (xs - x0)[..., None]
-    li = lvl.to(torch.int64).clamp(0, l - 1)[:, None]
-    c00 = stack2[li, y0, x0]
-    c01 = stack2[li, y0, x0 + 1]
-    c10 = stack2[li, y0 + 1, x0]
-    c11 = stack2[li, y0 + 1, x0 + 1]
+    flat = stack2.reshape(-1, h, w, 2)
+    li = _planes(lvl, l)[..., None]
+    c00 = flat[li, y0, x0]
+    c01 = flat[li, y0, x0 + 1]
+    c10 = flat[li, y0 + 1, x0]
+    c11 = flat[li, y0 + 1, x0 + 1]
     top = c00 * (1 - fx) + c01 * fx
     bot = c10 * (1 - fx) + c11 * fx
     v = top * (1 - fy) + bot * fy
@@ -93,17 +110,22 @@ def _fbin(ang: torch.Tensor, nb: int) -> torch.Tensor:
 
 
 def orientation_bins(dx, dy, inb, wv, nb: int) -> torch.Tensor:
-    """[K, nb] histograms of gradient angles weighted by mag * wv * inb."""
+    """[..., K, nb] histograms of gradient angles weighted by mag * wv * inb.
+
+    A product and a sum over the sample axis, not a contraction: a sum
+    over a short outer axis adds each output's terms in one order however
+    many slots there are, where a GEMM's blocking moves with the row count,
+    so a frame's histograms do not depend on the batch around it."""
     mag = torch.sqrt(dx * dx + dy * dy)
     w = mag * wv * inb
-    return torch.einsum("ks,ksb->kb", w, soft_bins(_fbin(torch.atan2(dy, dx), nb), nb))
+    return (w[..., None] * soft_bins(_fbin(torch.atan2(dy, dx), nb), nb)).sum(-2)
 
 
 def descriptor_contrib(dx, dy, inb, theta, wv, nb: int) -> torch.Tensor:
-    """[N, S, nb] soft bins of (theta - angle) weighted by mag * wv * inb."""
+    """[..., N, S, nb] soft bins of (theta - angle) weighted by mag * wv * inb."""
     mag = torch.sqrt(dx * dx + dy * dy)
     # gradient direction in the keypoint frame, y-up angle convention
-    ang = theta[:, None] - torch.atan2(dy, dx)
+    ang = theta[..., None] - torch.atan2(dy, dx)
     w = mag * wv * inb
     return soft_bins(_fbin(ang, nb), nb) * w[..., None]
 
@@ -115,13 +137,16 @@ def sample_grad_patches_plain(gauss: torch.Tensor, lvl: torch.Tensor,
     return bilinear_sample_pair(torch.stack([gdx, gdy], -1), lvl, ys, xs)
 
 
+def _grid(ys_rows: torch.Tensor, xs_cols: torch.Tensor):
+    """K6's grid as K1's points [..., N, GR * GC], point (n, r * GC + c)."""
+    shape = ys_rows.shape + xs_cols.shape[-1:]
+    return (ys_rows[..., :, None].expand(shape).flatten(-2),
+            xs_cols[..., None, :].expand(shape).flatten(-2))
+
+
 def sample_grad_patches_sep_plain(gauss, lvl, ys_rows, xs_cols):
     """Plain torch version of K6: K1's plain version on the expanded grid."""
-    k, gr = ys_rows.shape
-    gc = xs_cols.shape[1]
-    ys = ys_rows[:, :, None].expand(k, gr, gc).reshape(k, -1)
-    xs = xs_cols[:, None, :].expand(k, gr, gc).reshape(k, -1)
-    return sample_grad_patches_plain(gauss, lvl, ys, xs)
+    return sample_grad_patches_plain(gauss, lvl, *_grid(ys_rows, xs_cols))
 
 
 def sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb: int) -> torch.Tensor:
@@ -132,10 +157,11 @@ def sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb: int) -> torch.Tensor:
 
 def sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, w_spatial,
                           nb: int) -> torch.Tensor:
-    """Plain torch version of K5: [N, nb, cells], bins major."""
+    """Plain torch version of K5: [..., N, nb, cells], bins major (a
+    product and a sum over the samples, as `orientation_bins`)."""
     dx, dy, inb = sample_grad_patches_plain(gauss, lvl, ys, xs)
     contrib = descriptor_contrib(dx, dy, inb, theta, wv, nb)
-    return torch.einsum("sc,ksb->kbc", w_spatial, contrib)
+    return (contrib[..., None] * w_spatial[:, None, :]).sum(-3)
 
 
 def _checked(fn: str, device: torch.device, **tensors) -> None:
@@ -154,9 +180,21 @@ def _plain_or_cuda(fn: str, gauss: torch.Tensor) -> bool:
         return True
     if gauss.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for {gauss.device}")
-    if gauss.ndim != 3 or gauss.shape[0] < 1 or gauss.shape[1] < 2 or gauss.shape[2] < 2:
+    if (gauss.ndim not in (3, 4) or min(gauss.shape[:-2]) < 1 or gauss.shape[-2] < 2
+            or gauss.shape[-1] < 2):
         raise ValueError(f"{fn}: level stack {tuple(gauss.shape)}")
     return False
+
+
+def _frames(gauss: torch.Tensor, *slot_tensors):
+    """The kernels' batched form: a [L, H, W] stack with [N, ...] slot
+    tensors is the B = 1 case of [B, L, H, W] with [B, N, ...].  Returns
+    (the 4-D stack, the slot tensors with their frame axis, a function that
+    drops that axis again from the B = 1 case's outputs)."""
+    if gauss.ndim == 4:
+        return gauss, slot_tensors, lambda *outs: outs
+    return gauss[None], tuple(t[None] for t in slot_tensors), \
+        lambda *outs: tuple(o[0] for o in outs)
 
 
 def _launch(fn: str, gauss: torch.Tensor, *args) -> None:
@@ -173,10 +211,12 @@ def _ptrs(*tensors) -> list[int]:
 
 def sample_grad_patches(gauss: torch.Tensor, lvl: torch.Tensor,
                         ys: torch.Tensor, xs: torch.Tensor):
-    """K1: image gradients of `gauss` [L, H, W] at (ys, xs) [N, S].
+    """K1: image gradients of `gauss` [B, L, H, W] at (ys, xs) [B, N, S].
 
-    lvl: [N] int32 level per slot (clipped to [0, L-1]).  Returns
-    (dx [N, S] f32, dy [N, S] f32, inb [N, S] bool).
+    lvl: [B, N] int32 level per slot (clipped to [0, L-1] within its
+    frame).  Returns (dx [B, N, S] f32, dy [B, N, S] f32, inb [B, N, S]
+    bool).  A [L, H, W] stack with [N], [N, S] inputs is the B = 1 case
+    and gives [N, S] outputs.
     """
     global launches
     if _plain_or_cuda("sample_grad_patches", gauss):
@@ -184,29 +224,31 @@ def sample_grad_patches(gauss: torch.Tensor, lvl: torch.Tensor,
     f32 = torch.float32
     _checked("sample_grad_patches", gauss.device, gauss=(gauss, f32),
              lvl=(lvl, torch.int32), ys=(ys, f32), xs=(xs, f32))
-    l, h, w = gauss.shape
-    n, s = ys.shape
-    if lvl.shape != (n,) or xs.shape != (n, s):
+    gauss, (lvl, ys, xs), unbatch = _frames(gauss, lvl, ys, xs)
+    b, l, h, w = gauss.shape
+    n, s = ys.shape[1:]
+    if lvl.shape != (b, n) or xs.shape != (b, n, s) or ys.shape[0] != b:
         raise ValueError(f"sample_grad_patches: shapes lvl {tuple(lvl.shape)}, "
-                         f"ys {tuple(ys.shape)}, xs {tuple(xs.shape)}")
-    dx = torch.empty((n, s), dtype=f32, device=gauss.device)
+                         f"ys {tuple(ys.shape)}, xs {tuple(xs.shape)} for {b} frames")
+    dx = torch.empty((b, n, s), dtype=f32, device=gauss.device)
     dy = torch.empty_like(dx)
-    inb = torch.empty((n, s), dtype=torch.bool, device=gauss.device)
-    if n * s == 0:
-        return dx, dy, inb
+    inb = torch.empty((b, n, s), dtype=torch.bool, device=gauss.device)
+    if b * n * s == 0:
+        return unbatch(dx, dy, inb)
     _launch("cusift_sample_grad_patches", gauss,
-            *_ptrs(gauss, lvl, ys, xs, dx, dy, inb), l, h, w, n, s)
+            *_ptrs(gauss, lvl, ys, xs, dx, dy, inb), l, h, w, b, n, s)
     launches += 1
-    return dx, dy, inb
+    return unbatch(dx, dy, inb)
 
 
 def sample_grad_patches_sep(gauss: torch.Tensor, lvl: torch.Tensor,
                             ys_rows: torch.Tensor, xs_cols: torch.Tensor):
-    """K6: gradients of `gauss` on the per-slot grid ys_rows [N, GR] x
-    xs_cols [N, GC].
+    """K6: gradients of `gauss` [B, L, H, W] on the per-slot grid
+    ys_rows [B, N, GR] x xs_cols [B, N, GC] (lvl [B, N]).
 
-    Returns (dx, dy, inb) shaped [N, GR*GC] in row-major (r * GC + c) order;
-    inb is row-in & col-in.
+    Returns (dx, dy, inb) shaped [B, N, GR*GC] in row-major (r * GC + c)
+    order; inb is row-in & col-in.  [L, H, W] with [N, ...] inputs is the
+    B = 1 case.
     """
     global sep_launches
     if _plain_or_cuda("sample_grad_patches_sep", gauss):
@@ -214,25 +256,28 @@ def sample_grad_patches_sep(gauss: torch.Tensor, lvl: torch.Tensor,
     f32 = torch.float32
     _checked("sample_grad_patches_sep", gauss.device, gauss=(gauss, f32),
              lvl=(lvl, torch.int32), ys_rows=(ys_rows, f32), xs_cols=(xs_cols, f32))
-    l, h, w = gauss.shape
-    n, gr = ys_rows.shape
-    if lvl.shape != (n,) or xs_cols.ndim != 2 or xs_cols.shape[0] != n:
+    gauss, (lvl, ys_rows, xs_cols), unbatch = _frames(gauss, lvl, ys_rows, xs_cols)
+    b, l, h, w = gauss.shape
+    n, gr = ys_rows.shape[1:]
+    if (lvl.shape != (b, n) or ys_rows.shape[0] != b or xs_cols.ndim != 3
+            or xs_cols.shape[:2] != (b, n)):
         raise ValueError(f"sample_grad_patches_sep: shapes lvl {tuple(lvl.shape)}, "
-                         f"ys_rows {tuple(ys_rows.shape)}, xs_cols {tuple(xs_cols.shape)}")
-    gc = xs_cols.shape[1]
-    if n * gr * gc >= 2**31 or l * h * w >= 2**31:
-        raise ValueError(f"sample_grad_patches_sep: {n} slots of {gr} x {gc} on a "
-                         f"{l} x {h} x {w} stack: the kernel's 32-bit index takes fewer "
-                         "than 2^31 samples and pixels")
-    dx = torch.empty((n, gr * gc), dtype=f32, device=gauss.device)
+                         f"ys_rows {tuple(ys_rows.shape)}, xs_cols {tuple(xs_cols.shape)} "
+                         f"for {b} frames")
+    gc = xs_cols.shape[2]
+    if b * n * gr * gc >= 2**31 or b * l * h * w >= 2**31:
+        raise ValueError(f"sample_grad_patches_sep: {b} x {n} slots of {gr} x {gc} on "
+                         f"{b} x {l} x {h} x {w} stacks: the kernel's 32-bit index takes "
+                         "fewer than 2^31 samples and pixels")
+    dx = torch.empty((b, n, gr * gc), dtype=f32, device=gauss.device)
     dy = torch.empty_like(dx)
-    inb = torch.empty((n, gr * gc), dtype=torch.bool, device=gauss.device)
-    if n * gr * gc == 0:
-        return dx, dy, inb
+    inb = torch.empty((b, n, gr * gc), dtype=torch.bool, device=gauss.device)
+    if b * n * gr * gc == 0:
+        return unbatch(dx, dy, inb)
     _launch("cusift_sample_grad_patches_sep", gauss,
-            *_ptrs(gauss, lvl, ys_rows, xs_cols, dx, dy, inb), l, h, w, n, gr, gc)
+            *_ptrs(gauss, lvl, ys_rows, xs_cols, dx, dy, inb), l, h, w, b, n, gr, gc)
     sep_launches += 1
-    return dx, dy, inb
+    return unbatch(dx, dy, inb)
 
 
 MAX_SAMPLES = 4096   # K4/K5: samples per slot the wrappers take
@@ -283,68 +328,77 @@ def _plan_args(plan: dict) -> tuple[int, int, int, int]:
     return plan["slots"], plan["chunk"], plan["threads"], plan["smem_bytes"]
 
 
-def _check_slots(fn: str, gauss, lvl, ys, xs, wv) -> tuple[int, int]:
+def _check_slots(fn: str, gauss, lvl, ys, xs, wv) -> tuple[int, int, int]:
+    """(B, N, S) of K4's or K5's batched inputs, checked."""
     f32 = torch.float32
     _checked(fn, gauss.device, gauss=(gauss, f32), lvl=(lvl, torch.int32),
              ys=(ys, f32), xs=(xs, f32), wv=(wv, f32))
-    n, s = ys.shape
-    if lvl.shape != (n,) or xs.shape != (n, s) or wv.shape != (n, s):
+    b = gauss.shape[0]
+    n, s = ys.shape[1:]
+    if (lvl.shape != (b, n) or ys.shape[0] != b or xs.shape != (b, n, s)
+            or wv.shape != (b, n, s)):
         raise ValueError(f"{fn}: shapes lvl {tuple(lvl.shape)}, ys {tuple(ys.shape)}, "
-                         f"xs {tuple(xs.shape)}, wv {tuple(wv.shape)}")
+                         f"xs {tuple(xs.shape)}, wv {tuple(wv.shape)} for {b} frames")
     if s > MAX_SAMPLES:
         raise ValueError(f"{fn}: {s} samples per slot, at most {MAX_SAMPLES}")
-    return n, s
+    return b, n, s
 
 
 def sample_ori_hist(gauss: torch.Tensor, lvl: torch.Tensor, ys: torch.Tensor,
                     xs: torch.Tensor, wv: torch.Tensor, nb: int) -> torch.Tensor:
-    """K4: orientation histograms [N, nb] of the slots' sample points.
+    """K4: orientation histograms [B, N, nb] of the slots' sample points.
 
-    wv [N, S]: per-sample weight (radial Gaussian x keypoint validity); a
-    sample outside the image weighs nothing.  Smoothing stays outside.
+    gauss [B, L, H, W], lvl [B, N], ys/xs [B, N, S]; wv [B, N, S]:
+    per-sample weight (radial Gaussian x keypoint validity); a sample
+    outside the image weighs nothing.  Smoothing stays outside.  [L, H, W]
+    with [N, ...] inputs is the B = 1 case.
     """
     global ori_hist_launches
     if _plain_or_cuda("sample_ori_hist", gauss):
         return sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb)
-    n, s = _check_slots("sample_ori_hist", gauss, lvl, ys, xs, wv)
-    hist = torch.empty((n, nb), dtype=torch.float32, device=gauss.device)
-    if n * s == 0 or nb == 0:
-        return hist.zero_()
-    l, h, w = gauss.shape
-    plan = _launch_plan(n, s, None, _sm_count(gauss.device.index))
+    gauss, (lvl, ys, xs, wv), unbatch = _frames(gauss, lvl, ys, xs, wv)
+    b, n, s = _check_slots("sample_ori_hist", gauss, lvl, ys, xs, wv)
+    hist = torch.empty((b, n, nb), dtype=torch.float32, device=gauss.device)
+    if b * n * s == 0 or nb == 0:
+        return unbatch(hist.zero_())[0]
+    l, h, w = gauss.shape[1:]
+    plan = _launch_plan(b * n, s, None, _sm_count(gauss.device.index))
     _launch("cusift_sample_ori_hist", gauss, *_ptrs(gauss, lvl, ys, xs, wv, hist),
-            l, h, w, n, s, nb, *_plan_args(plan))
+            l, h, w, b, n, s, nb, *_plan_args(plan))
     ori_hist_launches += 1
-    return hist
+    return unbatch(hist)[0]
 
 
 def sample_desc_raw(gauss: torch.Tensor, lvl: torch.Tensor, ys: torch.Tensor,
                     xs: torch.Tensor, theta: torch.Tensor, wv: torch.Tensor,
                     w_spatial: torch.Tensor, nb: int) -> torch.Tensor:
-    """K5: raw descriptor histograms [N, nb, cells], bins major.
+    """K5: raw descriptor histograms [B, N, nb, cells], bins major.
 
-    theta [N] slot orientations; wv [N, S] spatial Gaussian weights;
-    w_spatial [S, cells] static bilinear cell weights.  Normalisation
-    stays outside.
+    gauss [B, L, H, W], lvl [B, N], ys/xs [B, N, S]; theta [B, N] slot
+    orientations; wv [B, N, S] spatial Gaussian weights; w_spatial
+    [S, cells] static bilinear cell weights, shared by the frames.
+    Normalisation stays outside.  [L, H, W] with [N, ...] inputs is the
+    B = 1 case.
     """
     global desc_raw_launches
     if _plain_or_cuda("sample_desc_raw", gauss):
         return sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, w_spatial, nb)
-    n, s = _check_slots("sample_desc_raw", gauss, lvl, ys, xs, wv)
+    gauss, (lvl, ys, xs, theta, wv), unbatch = _frames(gauss, lvl, ys, xs, theta, wv)
+    b, n, s = _check_slots("sample_desc_raw", gauss, lvl, ys, xs, wv)
     f32 = torch.float32
     _checked("sample_desc_raw", gauss.device, theta=(theta, f32),
              w_spatial=(w_spatial, f32))
-    if theta.shape != (n,) or w_spatial.ndim != 2 or w_spatial.shape[0] != s:
+    if theta.shape != (b, n) or w_spatial.ndim != 2 or w_spatial.shape[0] != s:
         raise ValueError(f"sample_desc_raw: shapes theta {tuple(theta.shape)}, "
-                         f"w_spatial {tuple(w_spatial.shape)} for [{n}, {s}] samples")
+                         f"w_spatial {tuple(w_spatial.shape)} for [{b}, {n}, {s}] samples")
     cells = w_spatial.shape[1]
-    raw = torch.empty((n, nb, cells), dtype=f32, device=gauss.device)
-    if n * s == 0 or nb * cells == 0:
-        return raw.zero_()
-    l, h, w = gauss.shape
-    plan = _launch_plan(n, s, cells, _sm_count(gauss.device.index))
+    raw = torch.empty((b, n, nb, cells), dtype=f32, device=gauss.device)
+    if b * n * s == 0 or nb * cells == 0:
+        return unbatch(raw.zero_())[0]
+    l, h, w = gauss.shape[1:]
+    plan = _launch_plan(b * n, s, cells, _sm_count(gauss.device.index))
     _launch("cusift_sample_desc_raw", gauss,
             *_ptrs(gauss, lvl, ys, xs, theta, wv, w_spatial, raw),
-            l, h, w, n, s, nb, cells, *_plan_args(plan))
+            l, h, w, b, n, s, nb, cells, *_plan_args(plan))
     desc_raw_launches += 1
-    return raw
+    return unbatch(raw)[0]

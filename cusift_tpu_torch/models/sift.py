@@ -9,7 +9,10 @@ Kernels by configuration: `fused_pyramid="pallas"`/`"pallas_hbm"` builds
 octaves of at least 64 px through K3 (smaller ones keep the chain);
 orientation and descriptors sample through K1 by default, K4/K5 with
 `sampler="fused"`, and K6/K1 with `sampler="separable"`.  `extract_batch`
-builds the pyramid of all frames at once and detects frame by frame.
+is one batched program from the pyramid to the final top-k, as the
+reference's `jax.vmap(extract)` is: every stage carries a leading frame
+axis, and each kernel launches once an octave and a use for the whole
+batch.  `extract` is the same code at B = 1.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from ..kernels import octave as k3
 from ..ops.describe import compact_slots, descriptors
 from ..ops.detect import detect_from_score, extrema_score
 from ..ops.gaussian import downsample2
-from ..ops.keypoints import top_indices
+from ..ops.keypoints import take, top_indices
 from ..ops.orientation import dominant_orientations, orientation_histograms
 from ..ops.pyramid import initial_level, octave_levels
 from ..utils.device import as_input
@@ -31,7 +34,8 @@ from ..utils.precision import pin_f32
 
 
 class SiftFeatures(NamedTuple):
-    """Static-capacity feature set: one row per (keypoint, orientation) slot."""
+    """Static-capacity feature set: one row per (keypoint, orientation) slot
+    ([B, N, ...] fields from `extract_batch`)."""
 
     x: torch.Tensor            # [N] base-image column
     y: torch.Tensor            # [N] base-image row
@@ -57,19 +61,22 @@ def _features_from(slots, desc: torch.Tensor, slot_valid: torch.Tensor) -> SiftF
 
 
 def _topk(feats: SiftFeatures, n: int) -> SiftFeatures:
-    if feats.valid.shape[0] < n:  # pad up to the static output capacity
-        pad = n - feats.valid.shape[0]
+    """Each frame's n best valid slots of [B, M, ...] features, dead lanes
+    zeroed."""
+    if feats.valid.shape[1] < n:  # pad up to the static output capacity
+        pad = n - feats.valid.shape[1]
         feats = SiftFeatures(*(
-            torch.cat([a, a.new_zeros((pad,) + a.shape[1:])], 0) for a in feats))
+            torch.cat([a, a.new_zeros(a.shape[:1] + (pad,) + a.shape[2:])], 1)
+            for a in feats))
     score = torch.where(feats.valid, feats.response.abs(),
                         torch.full_like(feats.response, -torch.inf))
     idx = top_indices(score, n)
-    out = SiftFeatures(*(a[idx] for a in feats))
-    valid = out.valid & torch.isfinite(score[idx])
+    out = take(feats, idx)
+    valid = out.valid & torch.isfinite(score.gather(-1, idx))
     # zero every field of dead lanes: invalid-slot content depends on the
     # top-k tie order and must never leak downstream
     out = SiftFeatures(*(
-        torch.where(valid.reshape(valid.shape + (1,) * (a.ndim - 1)), a,
+        torch.where(valid.reshape(valid.shape + (1,) * (a.ndim - 2)), a,
                     torch.zeros_like(a)) for a in out))
     return out._replace(valid=valid)
 
@@ -101,7 +108,10 @@ def _octave_planes(img: torch.Tensor, cfg: SiftConfig):
 
 
 def _features(planes, cfg: SiftConfig) -> SiftFeatures:
-    """Detection onwards for one frame from its octaves' planes."""
+    """Detection onwards for a [B] batch of frames from its octaves' planes
+    ([B, ...] each): one program over the batch, every kernel launched
+    once an octave and a use for all frames, each frame's features those of
+    that frame alone."""
     parts = []
     for oi, (samp, dog, score) in enumerate(planes):
         kps = detect_from_score(dog, score, oi, cfg)
@@ -111,7 +121,7 @@ def _features(planes, cfg: SiftConfig) -> SiftFeatures:
         slots = compact_slots(kps, theta, ok, cfg.desc_slots(oi))
         desc, slot_valid = descriptors(samp, slots, cfg, level_base=1)
         parts.append(_features_from(slots, desc, slot_valid))
-    feats = SiftFeatures(*(torch.cat(xs, 0) for xs in zip(*parts)))
+    feats = SiftFeatures(*(torch.cat(xs, 1) for xs in zip(*parts)))
     return _topk(feats, cfg.total_kpts)
 
 
@@ -120,30 +130,32 @@ def extract(img, cfg: SiftConfig = SiftConfig(), *, device=None) -> SiftFeatures
 
     `img` is a tensor, which stays on its device, or a numpy array, which
     goes to `device` (default "cuda"; see `utils/device.py`).  Returns a
-    SiftFeatures buffer of static capacity cfg.total_kpts.
+    SiftFeatures buffer of static capacity cfg.total_kpts.  The code is
+    `extract_batch`'s at B = 1, as the reference's vmap shares `extract`'s
+    body.
     """
     pin_f32()
     img = as_input(img, device)
     if img.ndim != 2:
         raise ValueError(f"extract takes one [H, W] image, got {tuple(img.shape)}")
-    return _features(_octave_planes(img, cfg), cfg)
+    feats = _features(_octave_planes(img[None], cfg), cfg)
+    return SiftFeatures(*(a[0] for a in feats))
 
 
 def extract_batch(imgs, cfg: SiftConfig = SiftConfig(), *,
                   device=None) -> SiftFeatures:
-    """Extraction over a [B, H, W] batch of frames.
+    """Extraction over a [B, H, W] batch of frames, as one batched program
+    (the reference's `jax.vmap(extract)`).
 
     The pyramid of every octave is built for all frames at once (one K3
-    launch per octave on the fused path); detection onwards runs frame by
-    frame.  Each frame's features equal `extract` of that frame.  Fields
-    carry a leading [B] axis, as the reference's `vmap` gives.  `device`
-    as for `extract`.
+    launch per octave on the fused path), and detection, orientation and
+    descriptors run over the batch: each sampler kernel launches once an
+    octave and a use for all B frames.  Each frame's features equal
+    `extract` of that frame bit for bit.  Fields carry a leading [B] axis,
+    as the reference's `vmap` gives.  `device` as for `extract`.
     """
     pin_f32()
     imgs = as_input(imgs, device)
     if imgs.ndim != 3:
         raise ValueError(f"extract_batch takes a [B, H, W] batch, got {tuple(imgs.shape)}")
-    planes = _octave_planes(imgs, cfg)
-    per_frame = [_features([tuple(p[b] for p in octave) for octave in planes], cfg)
-                 for b in range(imgs.shape[0])]
-    return SiftFeatures(*(torch.stack(xs, 0) for xs in zip(*per_frame)))
+    return _features(_octave_planes(imgs, cfg), cfg)

@@ -13,7 +13,8 @@ import torch
 
 
 class Keypoints(NamedTuple):
-    """[K]-shaped struct-of-arrays; `valid` masks live lanes.
+    """[K]-shaped struct-of-arrays ([B, K] for a batch of frames); `valid`
+    masks live lanes.
 
     (x, y, sigma) are in the base input-image frame; (xo, yo, so, octave,
     level) in the octave-local frame the samplers use.
@@ -49,25 +50,33 @@ def empty_keypoints(k: int, device=None) -> Keypoints:
 
 
 def concat_keypoints(parts: list[Keypoints]) -> Keypoints:
-    """The parts' lanes one after another, field by field."""
-    return Keypoints(*(torch.cat(xs, 0) for xs in zip(*parts)))
+    """The parts' lanes one after another, field by field (along the last,
+    slot, axis; leading frame axes are kept)."""
+    return Keypoints(*(torch.cat(xs, -1) for xs in zip(*parts)))
 
 
 def top_indices(score: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest entries of a 1-D score, ties to the lower
-    index (the order of `lax.top_k`; `torch.topk` promises none)."""
-    return torch.sort(score, descending=True, stable=True).indices[:k]
+    """Indices of the k largest entries along the last axis of score
+    [..., M], each row on its own, ties to the lower index (the order of
+    `lax.top_k`; `torch.topk` promises none)."""
+    return torch.sort(score, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
 def take(kps, idx: torch.Tensor):
-    """Gather every field of a NamedTuple buffer at `idx`."""
-    return type(kps)(*(a[idx] for a in kps))
+    """Gather every field of a NamedTuple buffer at idx [..., k]: the
+    fields' axis idx.ndim - 1 is the slot axis, any axes after it ride
+    along (a descriptor's 128)."""
+    def at(a):
+        return torch.take_along_dim(a, idx.reshape(idx.shape + (1,) * (a.ndim - idx.ndim)),
+                                    idx.ndim - 1)
+    return type(kps)(*(at(a) for a in kps))
 
 
 def topk_keypoints(kps: Keypoints, k: int) -> Keypoints:
-    """Compact to the k highest-|response| valid keypoints (static shape)."""
+    """Compact to the k highest-|response| valid keypoints (static shape),
+    per frame where the fields carry a leading frame axis."""
     score = torch.where(kps.valid, kps.response.abs(),
                         torch.full_like(kps.response, -torch.inf))
     idx = top_indices(score, k)
     out = take(kps, idx)
-    return out._replace(valid=out.valid & torch.isfinite(score[idx]))
+    return out._replace(valid=out.valid & torch.isfinite(score.gather(-1, idx)))

@@ -54,7 +54,11 @@ def solve3(m: torch.Tensor, b: torch.Tensor, eps: float = 1e-12):
     d = det3(m)
     ok = d.abs() > eps
     dd = torch.where(ok, d, torch.ones_like(d))
-    x = (adjugate3(m) @ b[..., None])[..., 0] / dd[..., None]
+    # adj(m) b as products and sums, elementwise over the leading axes: a
+    # batched matmul's algorithm may change with the batch's size
+    adj = adjugate3(m)
+    x = (adj[..., 0] * b[..., 0:1] + adj[..., 1] * b[..., 1:2]
+         + adj[..., 2] * b[..., 2:3]) / dd[..., None]
     return torch.where(ok[..., None], x, torch.zeros_like(x)), ok
 
 

@@ -18,25 +18,26 @@ name and power limit of the card.
 The flags, defaults and configuration are the reference's (the bench's
 scene, budgets (2048, 1024, 256, 96, 32), `desc_slot_factor=1.10`,
 upscale), plus --device ("cuda" unless asked for "cpu"; without a GPU the
-run stops with an error).  The frames are walked as `extract_batch` walks
-them: one pyramid over the batch, then each frame's detection onwards.
-The reference's topk stage takes `lax.approx_max_k`; the port has no
-approximate top-k, so its stage takes `torch.topk` of the same k.  In eager
+run stops with an error).  The batch is walked as `extract_batch` walks
+it: one batched program, each stage over all frames at once (each kernel
+launched once an octave and a use for the batch).  The reference's topk
+stage takes `lax.approx_max_k`; the port has no approximate top-k, so its
+stage takes `torch.topk` of the same k along each frame's row.  In eager
 torch every operation a program is given runs, so the pyramid stage also
 builds the extrema score (which XLA drops from the reference's program as
 unused) and the score line's marginal is its reduction alone.  Each
 program ends in one sum per kind of output over the octaves, so the stage
-markers add a few operations a frame, not a few an octave.
+markers add a few operations a program, not a few an octave.
 
 Timing: the reference's queue of `iters` calls, one wait for the device,
 then a read of the result, after a warm call.  The stages are timed in
 five passes, in turn and in reverse by turns, and each keeps its fastest
-(as bench.py keeps the faster of its two batch passes): the programs are
-bound by the host's dispatch of small operations (the card is busy a
-sixth to a fifth of the time), and passes of one program on a shared host
-differ by up to a third, far more than the marginal cost of the cheaper
-stages; the host's delays only add, so the fastest pass is the estimate
-(`tools/stage_noise.py` separates the noise from the cost).
+(as bench.py keeps the faster of its two batch passes): the host's
+dispatch of small operations still holds the card back part of the time,
+and passes of one program on a shared host differ by more than the
+marginal cost of the cheaper stages; the host's delays only add, so the
+fastest pass is the estimate (`tools/stage_noise.py` separates the noise
+from the cost and reads the card's busy share).
 """
 
 from __future__ import annotations
@@ -78,11 +79,17 @@ def _marker(groups: list) -> torch.Tensor:
 def upto(stage: str, cfg: SiftConfig):
     """A program over a [B, H, W] batch that runs the pipeline through
     `stage` and returns one number that depends on all of its work."""
-    def frame(planes) -> torch.Tensor:
+    def run(imgs: torch.Tensor) -> torch.Tensor:
+        pin_f32()
+        planes = _octave_planes(imgs, cfg)
+        if stage == "pyramid":
+            return _marker([(samp, dog) for samp, dog, _ in planes])
+        if stage == "score":
+            return _marker([(score,) for _, _, score in planes])
         outs = []
         for oi, (samp, dog, score) in enumerate(planes):
             if stage == "topk":
-                outs.append(torch.topk(score.reshape(-1), cfg.kpt_budget(oi)))
+                outs.append(torch.topk(score.flatten(1), cfg.kpt_budget(oi)))
                 continue
             kps = detect_from_score(dog, score, oi, cfg)
             if stage == "detect":
@@ -96,16 +103,6 @@ def upto(stage: str, cfg: SiftConfig):
             slots = compact_slots(kps, theta, ok, cfg.desc_slots(oi))
             outs.append(descriptors(samp, slots, cfg, level_base=1))
         return _marker(outs)
-
-    def run(imgs: torch.Tensor) -> torch.Tensor:
-        pin_f32()
-        planes = _octave_planes(imgs, cfg)
-        if stage == "pyramid":
-            return _marker([(samp, dog) for samp, dog, _ in planes])
-        if stage == "score":
-            return _marker([(score,) for _, _, score in planes])
-        return torch.stack([frame([tuple(p[b] for p in octave) for octave in planes])
-                            for b in range(imgs.shape[0])]).sum()
 
     return run
 

@@ -7,7 +7,8 @@ runs on its own:
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider --noconftest
 
 Tolerances: K1 and K6 atol 1e-5 on in-image samples (float32, same
-formula, FMA contraction only); `extract_batch` equals per-frame
+formula, FMA contraction only), and over a batch of frames each frame
+equal bit for bit to its own launch; `extract_batch` equals per-frame
 `extract` exactly; K2 atol 1e-5 on the scores (float32 dot
 products of unit vectors in another summation order), and the index may
 differ only where the plain top-2 is a near tie; K3 atol 1e-5 on levels
@@ -522,10 +523,67 @@ def test_sep_sampler_rejects_what_it_cannot_index(dev):
         k1.sample_grad_patches_sep(g, lvl, grid, grid)
 
 
+def _batched_inputs(rng, dev, B=3, L=3, H=120, W=160, N=50, S=144):
+    """[B, L, H, W] levels and [B, N, ...] slots, levels in [-1, L]."""
+    as_t = lambda a, dt=np.float32: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    cy, cx = rng.uniform(-5, H + 5, (B, N, 1)), rng.uniform(-5, W + 5, (B, N, 1))
+    return dict(gauss=as_t(rng.normal(size=(B, L, H, W))),
+                lvl=as_t(rng.integers(-1, L + 1, (B, N)), np.int32),
+                ys=as_t(cy + rng.uniform(-12, 12, (B, N, S))),
+                xs=as_t(cx + rng.uniform(-12, 12, (B, N, S))),
+                wv=as_t(rng.uniform(0, 1, (B, N, S))),
+                theta=as_t(rng.uniform(0, 2 * np.pi, (B, N))))
+
+
+@pytest.mark.parametrize("which", ["k1", "k4", "k5", "k6"])
+def test_batched_kernels_match_plain_and_frames(dev, which):
+    """K1, K4, K5 and K6 over a batch of 3 frames in one launch: against
+    their plain versions (K1 and K6 at 1e-5, K4 and K5 at 1e-4 of the
+    largest value), and each frame bit for bit against a launch over that
+    frame alone, with levels outside [0, L - 1] clipped within the frame."""
+    from cusift_tpu_torch.ops.describe import _spatial_weights
+
+    rng = np.random.default_rng(31)
+    a = _batched_inputs(rng, dev)
+    g, lvl, ys, xs, wv, th = (a[key] for key in ("gauss", "lvl", "ys", "xs", "wv", "theta"))
+    wsp = torch.from_numpy(_spatial_weights(12, 4)[1]).to(dev)
+    if which == "k6":
+        ys, xs = ys[..., :12].contiguous(), xs[..., :12].contiguous()
+    run, plain, count = {
+        "k1": (lambda *t: k1.sample_grad_patches(*t[:4]),
+               lambda *t: k1.sample_grad_patches_plain(*t[:4]), "launches"),
+        "k6": (lambda *t: k1.sample_grad_patches_sep(*t[:4]),
+               lambda *t: k1.sample_grad_patches_sep_plain(*t[:4]), "sep_launches"),
+        "k4": (lambda *t: (k1.sample_ori_hist(*t[:5], 36),),
+               lambda *t: (k1.sample_ori_hist_plain(*t[:5], 36),), "ori_hist_launches"),
+        "k5": (lambda *t: (k1.sample_desc_raw(*t[:4], t[5], t[4], wsp, 8),),
+               lambda *t: (k1.sample_desc_raw_plain(*t[:4], t[5], t[4], wsp, 8),),
+               "desc_raw_launches"),
+    }[which]
+    args = (g, lvl, ys, xs, wv, th)
+    before = getattr(k1, count)
+    out = run(*args)
+    assert getattr(k1, count) == before + 1
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    if len(out) == 3:
+        assert torch.equal(out[2], ref[2])
+        for o, r in zip(out[:2], ref[:2]):
+            torch.testing.assert_close(o[ref[2]], r[ref[2]], atol=1e-5, rtol=0)
+    else:
+        _close_rel(out[0], ref[0], 1e-4)
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    for f in range(g.shape[0]):
+        one = run(*(t[f] for t in args))
+        for o, r in zip(out, one):
+            assert torch.equal(bits(o[f]), bits(r)), (which, f)
+
+
 def test_extract_batch_matches_extract_per_frame(dev):
-    """The default (chain) path's extract_batch of a [4, 240, 320] batch
-    equals extract of each frame on the card, every field slot by slot,
-    though cuDNN gets the whole batch."""
+    """The default (chain) path's extract_batch of a [4, 240, 320] batch,
+    one batched program, equals extract of each frame on the card, every
+    field slot by slot, though cuDNN, the sorts and the kernels get the
+    whole batch."""
     from cusift_tpu_torch.data.synthetic import textured_image
     from cusift_tpu_torch.models.sift import extract, extract_batch
 
@@ -663,7 +721,8 @@ def test_chunk_rows_equal_frame_steps_on_the_card(dev):
     before = (k1.launches, k2.launches)
     _, pts, rows = _chunk_step(chunk, slam.intr, kd, kv, kp, cfg, slam.match_cfg,
                                slam.ransac_cfg, slam._next_keys(4))
-    assert k1.launches - before[0] == 4 * 2 * cfg.num_octaves_for(240, 320)
+    # one extract_batch over the chunk: K1 once an octave and a use
+    assert k1.launches - before[0] == 2 * cfg.num_octaves_for(240, 320)
     assert k2.launches - before[1] == 4
     slam._key_ctr -= 4
     for i in range(4):

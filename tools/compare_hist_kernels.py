@@ -3,8 +3,9 @@
     PYTHONPATH=. python tools/compare_hist_kernels.py OLD_SAMPLER_CU [--new NEW_SAMPLER_CU]
                                                      [--kernels k1,k4,k5,k6]
 
-OLD_SAMPLER_CU is a `cusift_tpu_torch/csrc/sampler.cu` whose entry points
-take the arguments the current ones do:
+OLD_SAMPLER_CU is a `cusift_tpu_torch/csrc/sampler.cu` of one frame a
+launch, whose entry points take these arguments (commit 3589398 up to
+25fb2cc, the last before the frame axis):
 
     cusift_sample_grad_patches(gauss, lvl, ys, xs, dx, dy, inb, L, H, W, N, S, stream)
     cusift_sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols, dx, dy, inb,
@@ -18,7 +19,8 @@ for example an earlier commit's, written out with `git show
 <commit>:cusift_tpu_torch/csrc/sampler.cu > trace/sampler_old.cu`.  The
 script builds it with nvcc into `--build-dir` (default `trace/old_sampler`,
 git-ignored) and runs both forms on the same inputs.  "New" is the
-package's own build, or with `--new` another source with the same entry
+package's own build (its entry points take B frames: `kernels/_build.py`'s
+signatures), or with `--new` another source with the package's entry
 points (a variant under trial), built beside the old one.  `--kernels`
 picks the kernels compared (default all):
 
@@ -36,7 +38,11 @@ picks the kernels compared (default all):
     N = 1, one sample a slot and 600 samples a slot;
   * K4 and K5 at `chip_smoke.py`'s shapes (the batch's five octaves; K5
     with the descriptor's spatial weights, and at octave 0 also with a
-    dense random matrix; a few slots with NaN points).
+    dense random matrix; a few slots with NaN points);
+  * each kernel over a batch of 8 frames in one launch (octaves 0 and 4 of
+    the bench's shapes at the descriptor slot budgets, levels outside
+    [0, L - 1] included) against the old form's 8 launches, one a frame:
+    bit-equal, and timed in turns.
 
 It prints for each case whether the outputs are bit-equal, the largest
 difference, and both forms' times taken in turns (old, new, new, old).
@@ -60,18 +66,24 @@ from cusift_tpu_torch.kernels import _build
 from cusift_tpu_torch.kernels import sampler as k
 from cusift_tpu_torch.ops.describe import _spatial_weights
 
-OLD_SIGNATURES = {name: _build.SIGNATURES[name] for name in (
-    "cusift_sample_grad_patches", "cusift_sample_grad_patches_sep", "cusift_sample_ori_hist",
-    "cusift_sample_desc_raw")}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the one-frame entry points of the sources before the frame axis
+OLD_SIGNATURES = {
+    "cusift_sample_grad_patches": ((_P,) * 7 + (_I,) * 5 + (_P,), _I),
+    "cusift_sample_grad_patches_sep": ((_P,) * 7 + (_I,) * 6 + (_P,), _I),
+    "cusift_sample_ori_hist": ((_P,) * 6 + (_I,) * 10 + (_P,), _I),
+    "cusift_sample_desc_raw": ((_P,) * 8 + (_I,) * 11 + (_P,), _I),
+}
+NEW_SIGNATURES = {name: _build.SIGNATURES[name] for name in OLD_SIGNATURES}
 
 
-def build(src: Path, build_dir: Path, stem: str) -> ctypes.CDLL:
+def build(src: Path, build_dir: Path, stem: str, signatures: dict) -> ctypes.CDLL:
     build_dir.mkdir(parents=True, exist_ok=True)
     out = build_dir / f"lib{stem}.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
                     str(src)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
-    for name, (argtypes, restype) in OLD_SIGNATURES.items():
+    for name, (argtypes, restype) in signatures.items():
         getattr(lib, name).argtypes = list(argtypes)
         getattr(lib, name).restype = restype
     return lib
@@ -124,7 +136,7 @@ def _k1_cases(gen, dev):
                                 .astype(np.float32)).to(dev)
     yield "k1 wide", gauss, lvl, ys, xs
     for i, inputs in enumerate(_pair_launches(dev)):
-        yield (f"k1 pair{i:02d}", *inputs)
+        yield (f"k1 pair{i:02d}", *(t[0] for t in inputs))     # extract's B = 1
 
 
 def _pair_launches(dev) -> list[tuple]:
@@ -185,13 +197,14 @@ def _call(lib, name, args, outs):
 def _sampling_compares(label, lib, new_lib, name, wrapper, inputs, dims, out_shape,
                        shape) -> dict:
     """K1 or K6: the new form (the package's wrapper, or new_lib's entry)
-    against lib's entry on the same inputs; dims are the entry's ints."""
+    against lib's entry on the same inputs; dims are the old entry's ints
+    (L, H, W, then the slots'), and the new entry's take B = 1 after L, H, W."""
     n, s = out_shape
     dev = inputs[0].device
     outs = [(torch.empty((n, s), device=dev), torch.empty((n, s), device=dev),
              torch.empty((n, s), dtype=torch.bool, device=dev)) for _ in range(2)]
     new_fn = (lambda: wrapper(*inputs)) if new_lib is None else _call(
-        new_lib, name, (*k._ptrs(*inputs, *outs[0]), *dims), outs[0])
+        new_lib, name, (*k._ptrs(*inputs, *outs[0]), *dims[:3], 1, *dims[3:]), outs[0])
     return _compare(label, new_fn, _call(lib, name, (*k._ptrs(*inputs, *outs[1]), *dims),
                                          outs[1]),
                     shape=shape)
@@ -246,6 +259,57 @@ def _hist_compares(gen, dev, lib, kernels) -> list[dict]:
     return cases
 
 
+def _batched_compares(gen, dev, lib, kernels) -> list[dict]:
+    """Each kernel over B = 8 frames in one launch (the package's wrapper)
+    against lib's one-frame entry launched on each frame in turn, into the
+    same [B, ...] layout, at octaves 0 and 4 of the bench's shapes and
+    descriptor slot budgets."""
+    B, L, S, G = 8, 3, 144, 12
+    sms = k._sm_count(dev.index)
+    _, wsp, gw = (torch.from_numpy(a).to(dev) for a in _spatial_weights(G, 4))
+    cases = []
+    for o in (0, len(cs.OCTAVE_SHAPES) - 1):
+        (H, W), n = cs.OCTAVE_SHAPES[o], cs.DESC_SLOTS[o]
+        pts = [cs._points(gen, dev, L, H, W, n, S) for _ in range(B)]
+        gauss, lvl, ys, xs = (torch.stack(t) for t in zip(*pts))
+        ys[:, 20:24] = float("nan")
+        wv = gw.expand(B, n, S).contiguous()
+        theta = torch.from_numpy(gen.uniform(0, 2 * np.pi, (B, n)).astype(np.float32)).to(dev)
+        rows, cols = ys[..., :G].contiguous(), xs[..., :G].contiguous()
+        specs = {
+            "k1": (lambda: k.sample_grad_patches(gauss, lvl, ys, xs), "cusift_sample_grad_patches",
+                   lambda f: (gauss[f], lvl[f], ys[f], xs[f]), (L, H, W, n, S),
+                   [(B, n, S)] * 2 + [(B, n, S, "bool")]),
+            "k6": (lambda: k.sample_grad_patches_sep(gauss, lvl, rows, cols),
+                   "cusift_sample_grad_patches_sep", lambda f: (gauss[f], lvl[f], rows[f], cols[f]),
+                   (L, H, W, n, G, G), [(B, n, G * G)] * 2 + [(B, n, G * G, "bool")]),
+            "k4": (lambda: (k.sample_ori_hist(gauss, lvl, ys, xs, wv, 36),),
+                   "cusift_sample_ori_hist", lambda f: (gauss[f], lvl[f], ys[f], xs[f], wv[f]),
+                   (L, H, W, n, S, 36, *k._plan_args(k._launch_plan(n, S, None, sms))),
+                   [(B, n, 36)]),
+            "k5": (lambda: (k.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, 8),),
+                   "cusift_sample_desc_raw",
+                   lambda f: (gauss[f], lvl[f], ys[f], xs[f], theta[f], wv[f], wsp),
+                   (L, H, W, n, S, 8, 16, *k._plan_args(k._launch_plan(n, S, 16, sms))),
+                   [(B, n, 8, 16)]),
+        }
+        for key in ("k1", "k4", "k5", "k6"):
+            if key not in kernels:
+                continue
+            new_fn, name, frame_in, dims, shapes = specs[key]
+            outs = [torch.empty(sh[:-1], dtype=torch.bool, device=dev) if sh[-1] == "bool"
+                    else torch.empty(sh, device=dev) for sh in shapes]
+
+            def old_fn(name=name, frame_in=frame_in, dims=dims, outs=outs):
+                for f in range(B):
+                    _old_call(lib, name, *k._ptrs(*frame_in(f), *(t[f] for t in outs)), *dims)
+                return tuple(outs)
+
+            cases.append(_compare(f"{key} batch{B} octave{o} N{n}", new_fn, old_fn,
+                                  shape=f"B{B}xL{L}x{H}x{W},N{n}"))
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old_source", type=Path)
@@ -262,8 +326,9 @@ def main() -> int:
         print("compare_hist_kernels: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    lib = build(args.old_source, args.build_dir, "old_sampler")
-    new_lib = build(args.new, args.build_dir, "new_sampler") if args.new else None
+    lib = build(args.old_source, args.build_dir, "old_sampler", OLD_SIGNATURES)
+    new_lib = (build(args.new, args.build_dir, "new_sampler", NEW_SIGNATURES) if args.new
+               else None)
     gen = np.random.default_rng(0)
     cases, sums = [], {}
 
@@ -286,6 +351,8 @@ def main() -> int:
                                              "k6 orientation sum (one image's five octaves)")
     if kernels & {"k4", "k5"}:
         cases += _hist_compares(gen, dev, lib, kernels)
+    if args.new is None:
+        cases += _batched_compares(gen, dev, lib, kernels)
     print(cs.smi_line())
     print(json.dumps({"cases": cases, **sums,
                       "all_bit_equal": all(c["bit_equal"] for c in cases)}))

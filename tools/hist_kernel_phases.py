@@ -102,11 +102,11 @@ def main() -> int:
 
     def k4(lib):
         return lambda: lib.cusift_sample_ori_hist(
-            *k._ptrs(g4, lv4, ys4, xs4, wv4, hist), L, H, W, n4, S, 36, *p4, stream)
+            *k._ptrs(g4, lv4, ys4, xs4, wv4, hist), L, H, W, 1, n4, S, 36, *p4, stream)
 
     def k5(lib):
         return lambda: lib.cusift_sample_desc_raw(
-            *k._ptrs(g5, lv5, ys5, xs5, theta, wv5, wsp, raw), L, H, W, n5, S, 8, 16,
+            *k._ptrs(g5, lv5, ys5, xs5, theta, wv5, wsp, raw), L, H, W, 1, n5, S, 8, 16,
             *p5, stream)
 
     out = {}
