@@ -69,9 +69,11 @@ Phases (one line each; any failure raises and exits non-zero):
  16. chunked RGB-D tracking on phase 14's orbit: one `_chunk_step` of 8
      frames against the bootstrap keyframe, its [8, 22] rows bit for bit
      against 8 sequential `_frame_step` calls with the same generator
-     seeds; then `Slam.run(chunk=8)` over the 48 frames (every frame
-     tracked, ATE, >= 10 keyframes and fewer than twice phase 14's, one
-     fetch of the packed rows a chunk), frames/s beside phase 14's;
+     seeds, with one K2 launch; then `Slam.run(chunk=8)` over the 48
+     frames (every frame tracked, ATE, >= 10 keyframes and fewer than
+     twice phase 14's, one fetch of the packed rows a chunk, one K2 launch
+     a chunk step and one a window BA association), frames/s beside phase
+     14's;
  17. a stereo pair at full width: frame 0 of the north-star stereo scene
      (`two_plane_stereo_sequence(150, 480, 640, seed=3, motion_scale=0.9,
      path="loop", amplitude=6.0, blobs=800, detail_octaves=4)`) through
@@ -82,7 +84,8 @@ Phases (one line each; any failure raises and exits non-zero):
  18. stereo SLAM: `StereoSlam.run` over that scene at chunk 1 and chunk 8
      (`SlamConfig(max_keyframes=48, loop_temporal_gap=12)`), each after an
      untimed warm-up: >= 145 frames tracked, metric ATE (no alignment)
-     < 0.04 of the path, KITTI drift < 15%; frames/s with window BA,
+     < 0.04 of the path, KITTI drift < 15%, K2 2 launches a chunk step
+     at chunk 8 and one a window BA association; frames/s with window BA,
      keypoints a frame, keyframes, closures, evictions, ms per event, K1
      and K2 launches a frame and peak device memory;
  19. a mono pair at full width: the stereo scene's left frames 0->1->2
@@ -178,14 +181,21 @@ Phases (one line each; any failure raises and exits non-zero):
      version at phases 3 and 8-10's tolerances and bit for bit against the
      launches of its frames alone, timed beside those 8 launches and the
      plain version, with its bound; the default configuration's peak
-     device memory beside one frame's `extract`.
+     device memory beside one frame's `extract`;
+ 35. K2's frame axis at the launches phase 16's run gave it: the chunk
+     step's tracking match (8 x 2048 descriptors against the shared
+     2048-slot keyframe) and window BA's association (the anchor's 2048
+     against the window's [5, 2048]), each word for word against the
+     frames' single launches and within K2's tolerance of its plain
+     version, timed beside those single launches, the plain version and
+     one `torch.baddbmm` + `topk`, with the batch's bound.
 The line before the last is a JSON object with each kernel's launches on
 its path (K1's and K2's on phases 23-27 under `new_path_launches`, on
 phase 28 under `map_launches`, K1's, K2's and K3's on phases 30-33 under
 `entry_point_launches`; K1's and K2's checks at phases 31 and 33's
-inputs under `entry_point_shape`; K1's, K4's, K5's and K6's phase 34 under
-`batched`), its error against the plain version, its times and its
-bound;
+inputs under `entry_point_shape`; K1's, K4's, K5's and K6's phase 34 and
+K2's phase 35 under `batched`), its error against the plain version, its
+times and its bound;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device it
 exits non-zero and prints no result.
 """
@@ -558,8 +568,9 @@ def _k2_case(name, ta, tb, tv) -> float:
     tie; returns the max |err|."""
     from cusift_tpu_torch.kernels import matcher as k2
 
-    top, idx = k2.top2(ta, tb, tv)
-    rtop, ridx = k2.top2_plain(ta, tb, tv)
+    (top, idx), (rtop, ridx) = k2.top2(ta, tb, tv), k2.top2_plain(ta, tb, tv)
+    top, rtop = top.reshape(-1, 2), rtop.reshape(-1, 2)     # frames flattened
+    idx, ridx = idx.reshape(-1), ridx.reshape(-1)
     torch.cuda.synchronize()
     fin = torch.isfinite(rtop)
     if not torch.equal(fin, torch.isfinite(top)) or not torch.equal(
@@ -571,33 +582,51 @@ def _k2_case(name, ta, tb, tv) -> float:
     if not err <= K2_ATOL or bad.any():
         raise AssertionError(f"K2 {name}: max |err| {err}, "
                              f"{int(bad.sum())} index mismatches")
-    log("k2", case=name, shape=f"N{ta.shape[0]},M{tb.shape[0]}",
+    log("k2", case=name, shape=_k2_shape(ta, tb),
         valid_b=int(tv.sum()), max_abs_err=err)
     return err
 
 
+def _k2_frames(ta, tb) -> int:
+    """The frame count of a K2 input (1 without a frame axis)."""
+    return next((t.shape[0] for t in (ta, tb) if t.ndim == 3), 1)
+
+
+def _k2_shape(ta, tb) -> str:
+    return f"B{_k2_frames(ta, tb)},N{ta.shape[-2]},M{tb.shape[-2]}"
+
+
 def _k2_timed(tag, ta, tb, tv) -> dict:
     """K2's time, its plain version's and the library yardstick's on one
-    input, with its launch plan and bound."""
+    input (either side may carry a frame axis), with its launch plan and
+    bound."""
     from cusift_tpu_torch.kernels import matcher as k2
 
-    (n, d), m = ta.shape, tb.shape[0]
+    frames, (n, d), m = _k2_frames(ta, tb), ta.shape[-2:], tb.shape[-2]
     top, idx = k2.top2(ta, tb, tv)
     ms = time_ms(lambda: k2.top2(ta, tb, tv), tag)
     plain_ms = time_ms(lambda: k2.top2_plain(ta, tb, tv), f"{tag} plain")
     # the library yardstick: one cuBLAS GEMM with the -inf column bias as
-    # its epilogue input, then torch.topk
+    # its epilogue input (batched: baddbmm, a shared side expanded as a
+    # view), then torch.topk
     bias = torch.where(tv, 0.0, -torch.inf)
-    library_ms = time_ms(lambda: torch.topk(torch.addmm(bias, ta, tb.T), 2, dim=1),
-                         f"{tag} library")
-    plan = k2._launch_plan(n, m, d, k2._sm_count(ta.device.index))
+    if ta.ndim == tb.ndim == 2:
+        library_ms = time_ms(lambda: torch.topk(torch.addmm(bias, ta, tb.T), 2, dim=1),
+                             f"{tag} library")
+    else:
+        a3, b3 = (t if t.ndim == 3 else t.expand(frames, *t.shape) for t in (ta, tb))
+        bias3 = bias[:, None, :] if bias.ndim == 2 else bias[None, None, :]
+        library_ms = time_ms(
+            lambda: torch.topk(torch.baddbmm(bias3, a3, b3.transpose(1, 2)), 2, dim=-1),
+            f"{tag} library")
+    plan = k2._launch_plan(n, m, d, k2._sm_count(ta.device.index), frames)
     moved = nbytes(ta, tb, tv, top, idx)
-    flops = 2.0 * n * m * d
+    flops = 2.0 * frames * n * m * d
     # bound_ms: the function's own 2*N*M*D at the tensor-core peak the
     # kernel uses; beside it the same work on the CUDA cores, and the
     # 3xTF32 algorithm's three products per multiply-add (not a bound)
     b = bound(moved, flops, TF32_FLOPS)
-    log(tag, shape=f"N{n},M{m},D{d}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+    log(tag, shape=f"B{frames},N{n},M{m},D{d}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{library_ms:.4f}", faster_than_library=ms < library_ms,
         bound_ms=f"{b['bound_ms']:.4f}", splits=plan["splits"], blocks=plan["blocks"],
         card=json.dumps(smi_line()))
@@ -1258,13 +1287,14 @@ def _spread(xs) -> str:
 @contextlib.contextmanager
 def first_calls(module, name: str, key):
     """Within the block, keep clones of the tensor arguments of the first
-    call of `module.name` for each value of key() (None keeps nothing);
-    every call runs as before.  These are the inputs a path gives a kernel
-    wrapper, to hold the kernel against its plain version on them."""
+    call of `module.name` for each value of key(*args) (None keeps
+    nothing); every call runs as before.  These are the inputs a path
+    gives a kernel wrapper, to hold the kernel against its plain version
+    on them."""
     calls, fn = {}, getattr(module, name)
 
     def wrapper(*args):
-        k = key()
+        k = key(*args)
         if k is not None and k not in calls:
             calls[k] = tuple(t.clone() for t in args)
         return fn(*args)
@@ -1352,9 +1382,9 @@ def slam_path(dev) -> tuple[dict, dict, dict]:
     warm.on_event = lambda stage, _: in_event.__setitem__(0, stage == "dispatch")
     reset_counts()
     with first_calls(sampler, "sample_grad_patches",
-                     lambda: sampler.launches if sampler.launches < n_k1 else None) as k1_in, \
+                     lambda *_: sampler.launches if sampler.launches < n_k1 else None) as k1_in, \
             first_calls(matcher, "top2",
-                        lambda: "event" if in_event[0] else "tracking") as k2_in:
+                        lambda *_: "event" if in_event[0] else "tracking") as k2_in:
         warm.run(iter(frames[:WARMUP_FRAMES]))
     torch.cuda.synchronize()
     log("slam", warmup_frames=WARMUP_FRAMES, warmup_s=f"{time.perf_counter() - t0:.3f}")
@@ -1429,15 +1459,20 @@ def slam_path(dev) -> tuple[dict, dict, dict]:
 
 
 def count_chunk_fetches(slam) -> dict:
-    """Count a chunked run's steps and the commits that had to fetch their
-    own row (a device tensor handed to `_commit`), through instance
-    attributes that call the class's methods."""
-    seen = dict(steps=0, commit_fetches=0, commits=0)
+    """Count a chunked run's steps, each step's K2 launches and the commits
+    that had to fetch their own row (a device tensor handed to `_commit`),
+    through instance attributes that call the class's methods."""
+    from cusift_tpu_torch.kernels import matcher
+
+    seen = dict(steps=0, step_k2=[], commit_fetches=0, commits=0)
     step, commit = slam._chunk_sense_step, slam._commit
 
     def chunk_step(*args):
         seen["steps"] += 1
-        return step(*args)
+        k2_0 = matcher.launches
+        out = step(*args)
+        seen["step_k2"].append(matcher.launches - k2_0)
+        return out
 
     def counted_commit(feats, pts, packed, ref, index=None):
         seen["commits"] += 1
@@ -1448,11 +1483,47 @@ def count_chunk_fetches(slam) -> dict:
     return seen
 
 
-def chunked_slam_path(dev, chunk1: dict) -> dict:
+@contextlib.contextmanager
+def counted_associations():
+    """Within the block, the K2 launches of each window BA association
+    (`models/local_ba.py:build_window_problem`, which `window_ba` and
+    `window_ba_dist` reach), as a list."""
+    from cusift_tpu_torch.kernels import matcher
+    from cusift_tpu_torch.models import local_ba
+
+    fn, seen = local_ba.build_window_problem, []
+
+    def wrapper(*args, **kw):
+        k2_0 = matcher.launches
+        out = fn(*args, **kw)
+        seen.append(matcher.launches - k2_0)
+        return out
+
+    local_ba.build_window_problem = wrapper
+    try:
+        yield seen
+    finally:
+        local_ba.build_window_problem = fn
+
+
+def _batched_k2_kind(ta, tb, tv):
+    """Phase 35's inputs: the chunk step's tracking match (CHUNK frames
+    against a shared keyframe) and window BA's association (a shared
+    anchor against the window's keyframes)."""
+    if ta.ndim == 3 and ta.shape[0] == CHUNK and tb.ndim == 2:
+        return "chunk"
+    return "window" if ta.ndim == 2 and tb.ndim == 3 else None
+
+
+def chunked_slam_path(dev, chunk1: dict) -> tuple[dict, dict]:
     """Phase 14's orbit at chunk 8: a chunk step's rows against sequential
     steps bit for bit, then Slam.run(chunk=8) timed beside phase 14's
-    chunk-1 run (`chunk1`: its frames/s and keyframes)."""
+    chunk-1 run (`chunk1`: its frames/s and keyframes), with one K2 launch
+    a chunk step and one a window BA association.  Returns the run's
+    launch counts and K2's first chunk-step and association inputs
+    (phase 35)."""
     from cusift_tpu_torch import SiftConfig
+    from cusift_tpu_torch.kernels import matcher
     from cusift_tpu_torch.models.slam import _chunk_step, _frame_step
 
     seq, frames, build = slam_setup()
@@ -1462,18 +1533,21 @@ def chunked_slam_path(dev, chunk1: dict) -> dict:
     _, kd, kv, kp = slam._ref_cache
     chunk = torch.from_numpy(np.stack([np.stack(f) for f in frames[1:CHUNK + 1]])).to(dev)
     ctr = slam._key_ctr
+    k2_0 = matcher.launches
     _, _, rows = _chunk_step(chunk, slam.intr, kd, kv, kp, cfg, slam.match_cfg,
                              slam.ransac_cfg, slam._next_keys(CHUNK))
+    chunk_k2 = matcher.launches - k2_0
     slam._key_ctr = ctr
     seq_rows = torch.stack([
         _frame_step(chunk[i, 0], chunk[i, 1], slam.intr, kd, kv, kp, cfg, slam.match_cfg,
                     slam.ransac_cfg, slam._next_key())[2] for i in range(CHUNK)])
     diff = (rows - seq_rows).abs().max().item()
     log("chunk", check="chunk rows == sequential rows", frames=CHUNK,
-        bit_equal=torch.equal(rows, seq_rows), max_abs_diff=diff,
+        bit_equal=torch.equal(rows, seq_rows), max_abs_diff=diff, k2_launches=chunk_k2,
         inliers=[int(v) for v in rows[:, 0].tolist()])
-    if not torch.equal(rows, seq_rows):
-        raise AssertionError(f"chunk rows differ from sequential rows by {diff}")
+    if not torch.equal(rows, seq_rows) or chunk_k2 != 1:
+        raise AssertionError(f"chunk rows differ from sequential rows by {diff}, "
+                             f"K2 {chunk_k2} launches a chunk (expected 1)")
 
     t0 = time.perf_counter()
     build(dev).run(iter(frames[:WARMUP_FRAMES]), chunk=CHUNK)
@@ -1485,7 +1559,9 @@ def chunked_slam_path(dev, chunk1: dict) -> dict:
     fetch = count_chunk_fetches(slam)
     torch.cuda.synchronize()
     reset_counts()
-    recs = slam.run(iter(frames), chunk=CHUNK)
+    with counted_associations() as assoc, \
+            first_calls(matcher, "top2", _batched_k2_kind) as k2_in:
+        recs = slam.run(iter(frames), chunk=CHUNK)
     t_end = time.perf_counter()
     launches = read_counts()
     s = slam.state
@@ -1495,10 +1571,12 @@ def chunked_slam_path(dev, chunk1: dict) -> dict:
     if (len(recs) != SLAM_FRAMES or tracked != SLAM_FRAMES or not ate < MAX_ATE
             or s.n_kf_total < 10 or not s.n_kf_total < 2 * chunk1["keyframes"]
             or fetch["steps"] != steps or fetch["commit_fetches"]
-            or fetch["commits"] != SLAM_FRAMES - 1):
+            or fetch["commits"] != SLAM_FRAMES - 1 or set(fetch["step_k2"]) != {1}
+            or not assoc or set(assoc) != {1} or set(k2_in) != {"chunk", "window"}):
         raise AssertionError(f"chunked slam: frames {len(recs)}, tracked {tracked}, ATE {ate}, "
                              f"keyframes {s.n_kf_total} (chunk 1: {chunk1['keyframes']}), "
-                             f"fetches {fetch} for {steps} steps")
+                             f"fetches {fetch} for {steps} steps, K2 launches of the "
+                             f"window associations {assoc}, kept K2 inputs {sorted(k2_in)}")
     ev = event_stats(st)
     fps = (SLAM_FRAMES - 1) / (t_end - st["frame_end"][0])
     log("chunk", image="x".join(map(str, seq.images.shape[-2:])), frames=SLAM_FRAMES,
@@ -1509,8 +1587,9 @@ def chunked_slam_path(dev, chunk1: dict) -> dict:
         events=ev["n"], event_ms=_spread(ev["ms"]),
         k1_per_frame=f"{(launches['sampler'] - ev['k1']) / SLAM_FRAMES:.2f}",
         k2_per_tracking_step=f"{(launches['matcher'] - ev['k2']) / (SLAM_FRAMES - 1):.2f}",
-        launches=json.dumps(launches), card=json.dumps(smi_line()))
-    return launches
+        k2_per_chunk_step=fetch["step_k2"][0], associations=len(assoc),
+        k2_per_association=assoc[0], launches=json.dumps(launches), card=json.dumps(smi_line()))
+    return launches, k2_in
 
 
 def stereo_scene():
@@ -1580,10 +1659,12 @@ def stereo_slam_run(dev, seq, chunk: int, n_frames: int) -> dict:
 
     slam = build()
     st = observe(slam)
+    fetch = count_chunk_fetches(slam)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    recs = slam.run(iter(pairs), chunk=chunk)
+    with counted_associations() as assoc:
+        recs = slam.run(iter(pairs), chunk=chunk)
     t_end = time.perf_counter()
     launches = read_counts()
     s = slam.state
@@ -1598,10 +1679,12 @@ def stereo_slam_run(dev, seq, chunk: int, n_frames: int) -> dict:
     others = sum(launches[k] for k in ("octave", "ori_hist", "desc_raw", "sep"))
     if (len(recs) != n_frames or tracked < min_tracked or not ate < STEREO_ATE_OF_PATH * path
             or not drift < STEREO_MAX_DRIFT or others or not launches["sampler"]
-            or not launches["matcher"]):
+            or not launches["matcher"] or not assoc or set(assoc) != {1}
+            or (chunk > 1 and set(fetch["step_k2"]) != {2})):
         raise AssertionError(f"stereo slam chunk {chunk}: frames {len(recs)}, tracked "
                              f"{tracked}, ATE {ate} of path {path}, drift {drift} %, "
-                             f"launches {launches}")
+                             f"launches {launches}, K2 a chunk step {fetch['step_k2']}, "
+                             f"a window association {assoc}")
     ev = event_stats(st)
     fps = (n_frames - 1) / (t_end - st["frame_end"][0])
     out = dict(chunk=chunk, frames=n_frames, fps=fps, tracked=tracked,
@@ -1610,6 +1693,8 @@ def stereo_slam_run(dev, seq, chunk: int, n_frames: int) -> dict:
                kpts_median=statistics.median(r["kpts"] for r in recs),
                k1_per_frame=(launches["sampler"] - ev["k1"]) / n_frames,
                k2_per_frame=(launches["matcher"] - ev["k2"]) / n_frames,
+               k2_per_chunk_step=fetch["step_k2"][0] if fetch["step_k2"] else None,
+               associations=len(assoc), k2_per_association=assoc[0],
                launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     log("stereo_slam", image="x".join(map(str, seq.images_l.shape[-2:])), chunk=chunk,
         frames=n_frames, warmup_s=f"{warmup_s:.3f}", tracked=tracked,
@@ -1620,6 +1705,8 @@ def stereo_slam_run(dev, seq, chunk: int, n_frames: int) -> dict:
         kpts_min=min(r["kpts"] for r in recs), fps_with_ba=f"{fps:.3f}",
         events=ev["n"], event_ms=_spread(ev["ms"]),
         k1_per_frame=f"{out['k1_per_frame']:.2f}", k2_per_frame=f"{out['k2_per_frame']:.2f}",
+        k2_per_chunk_step=out["k2_per_chunk_step"], associations=len(assoc),
+        k2_per_association=assoc[0],
         k1_per_event=f"{ev['k1'] / max(ev['n'], 1):.2f}",
         k2_per_event=f"{ev['k2'] / max(ev['n'], 1):.2f}",
         peak_mem_gb=f"{out['peak_mem_gb']:.3f}", launches=json.dumps(launches),
@@ -1710,6 +1797,51 @@ def check_matcher_slam(dev, calls) -> dict:
         err = _k2_case(f"slam {kind}", ta, tb, tv)
         out[kind] = dict(max_abs_err=err, valid_b=int(tv.sum()),
                          **_k2_timed(f"k2 slam {kind}", ta, tb, tv))
+    return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), **out)
+
+
+
+def batched_matcher(dev, calls) -> dict:
+    """Phase 35: K2's frame axis at the inputs phase 16 gave it: the chunk
+    step's tracking match (CHUNK x 2048 descriptors against the shared
+    2048-slot keyframe) and window BA's association (the anchor's 2048
+    against the window's [5, 2048]).  Each batched launch is held word for
+    word against its frames' single launches, and against its plain
+    version within K2_ATOL (near ties excepted), then timed beside those
+    single launches, the plain version and the library yardstick (one
+    `torch.baddbmm` + `topk`), with the batch's bound."""
+    from cusift_tpu_torch.kernels import matcher as k2
+
+    out = {}
+    for kind in ("chunk", "window"):
+        ta, tb, tv = calls[kind]
+        frames = _k2_frames(ta, tb)
+
+        def one(f):
+            return (ta[f] if ta.ndim == 3 else ta, tb[f] if tb.ndim == 3 else tb,
+                    tv[f] if tv.ndim == 2 else tv)
+
+        top, idx = k2.top2(ta, tb, tv)
+        for f in range(frames):
+            t1, i1 = k2.top2(*one(f))
+            if not (_bits_equal(top[f], t1) and torch.equal(idx[f], i1)):
+                raise AssertionError(f"K2 batched {kind}: frame {f} differs from its own launch")
+        err = _k2_case(f"batched {kind}", ta, tb, tv)
+        timed = _k2_timed(f"k2 batched {kind}", ta, tb, tv)
+        single_ms = time_ms(lambda: [k2.top2(*one(f)) for f in range(frames)],
+                            f"k2 batched {kind} single launches")
+        single_plan = k2._launch_plan(ta.shape[-2], tb.shape[-2], ta.shape[-1],
+                                      k2._sm_count(dev.index))
+        out[kind] = dict(shape=_k2_shape(ta, tb), frames=frames, max_abs_err=err,
+                         single_launches_ms=single_ms, single_splits=single_plan["splits"],
+                         word_equal_to_single=True, valid_b=int(tv.sum()), **timed)
+        log("batched_k2", path=kind, shape=out[kind]["shape"], word_equal_to_single=True,
+            max_abs_err=err, ms=f"{timed['ms']:.4f}", single_launches_ms=f"{single_ms:.4f}",
+            plain_ms=f"{timed['plain_ms']:.4f}", library_ms=f"{timed['library_ms']:.4f}",
+            bound_ms=f"{timed['bound_ms']:.4f}",
+            pct_of_bound=f"{100 * timed['bound_ms'] / timed['ms']:.1f}",
+            splits=timed["splits"], single_splits=single_plan["splits"],
+            card=json.dumps(smi_line()))
     return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), **out)
 
 
@@ -1925,7 +2057,7 @@ def mono_vo_run(dev, seq, n_frames: int) -> dict:
     warm = build()
     reset_counts()
     with first_calls(sampler, "sample_grad_patches",
-                     lambda: sampler.launches if n_k1 <= sampler.launches < 2 * n_k1 else None
+                     lambda *_: sampler.launches if n_k1 <= sampler.launches < 2 * n_k1 else None
                      ) as k1_in:
         warm.run(iter(frames[:VO_WARMUP_FRAMES]))
     torch.cuda.synchronize()
@@ -1947,7 +2079,7 @@ def mono_vo_run(dev, seq, n_frames: int) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t_start = time.perf_counter()
-    with (first_calls(matcher, "top2", lambda: "loop" if in_loop[0] else "pair") as k2_in,
+    with (first_calls(matcher, "top2", lambda *_: "loop" if in_loop[0] else "pair") as k2_in,
           first_segment_calls("vo sim3", 1) as seg_in):
         er, et = vo.run(iter(frames))
     t_end = time.perf_counter()
@@ -2779,8 +2911,8 @@ def bench_entry(extra: list, tag: str) -> dict:
 @contextlib.contextmanager
 def live_inputs(k1_limit: int = 16, k2_limit: int = 4):
     """Within the block, keep clones of the first K1 call of each (levels
-    shape, slots shape) and of the first K2 call of each (rows, columns)
-    whose columns are not all masked: the inputs an entry point gives the
+    shape, slots shape) and of the first K2 call of each (frames, rows,
+    columns) whose columns are not all masked: the inputs an entry point gives the
     two kernels, to hold each against its plain version on them.  Every
     call runs as before; the mask is read only for a shape not yet kept,
     so a queued run is not made to wait."""
@@ -2795,7 +2927,7 @@ def live_inputs(k1_limit: int = 16, k2_limit: int = 4):
         return k1(*args)
 
     def k2_kept(ta, tb, tv):
-        key = (ta.shape[0], tb.shape[0])
+        key = _k2_shape(ta, tb)
         if key not in kept["k2"] and len(kept["k2"]) < k2_limit and bool(tv.any()):
             kept["k2"][key] = (ta.clone(), tb.clone(), tv.clone())
         return k2(ta, tb, tv)
@@ -2815,10 +2947,10 @@ def check_entry_inputs(dev, kept: dict, path: str) -> dict:
                              "inputs")
     k1 = check_sampler_slam(dev, list(kept["k1"].values()), path=path)
     k2 = {}
-    for (n, m), (ta, tb, tv) in kept["k2"].items():
-        name = f"{path} {n}x{m}"
-        k2[f"{n}x{m}"] = dict(max_abs_err=_k2_case(name, ta, tb, tv), valid_b=int(tv.sum()),
-                              **_k2_timed(f"k2 {name}", ta, tb, tv))
+    for shape, (ta, tb, tv) in kept["k2"].items():
+        name = f"{path} {shape}"
+        k2[shape] = dict(max_abs_err=_k2_case(name, ta, tb, tv), valid_b=int(tv.sum()),
+                         **_k2_timed(f"k2 {name}", ta, tb, tv))
     return dict(k1=k1, k2=dict(max_abs_err=max(c["max_abs_err"] for c in k2.values()), **k2))
 
 
@@ -2949,7 +3081,7 @@ def main() -> int:
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_slam["max_abs_err"])
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_slam["max_abs_err"])
     t0 = time.perf_counter()
-    chunked = chunked_slam_path(dev, slam_stats)
+    chunked, batched_k2_in = chunked_slam_path(dev, slam_stats)
     stereo_seq = stereo_scene()
     pair = stereo_pair(dev, stereo_seq)
     stereo = stereo_slam_path(dev, stereo_seq)
@@ -2995,6 +3127,10 @@ def main() -> int:
     for key, entry in (("k1", k1), ("k4", k4), ("k5", k5), ("k6", k6)):
         entry["max_abs_err"] = max(entry["max_abs_err"], batched[key]["max_abs_err"])
     log("phase 34", seconds=f"{time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    k2_batched = batched_matcher(dev, batched_k2_in)
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_batched["max_abs_err"])
+    log("phase 35", seconds=f"{time.perf_counter() - t0:.3f}")
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -3071,7 +3207,8 @@ def main() -> int:
              new_path_launches=new_paths["matcher"], map_launches=map_launches["matcher"],
              map_path="map-anchored mono VO (phase 28)", map_shape=k2_map,
              entry_point_launches=entry_launches["matcher"],
-             entry_point_shape=entry_shapes["k2"], **k2),
+             entry_point_shape=entry_shapes["k2"], batched=k2_batched,
+             batched_path="the chunk step's and window BA's launches (phase 35)", **k2),
         dict(name="fused_octave", route="cuda", source=src + "octave.cu",
              replaces=tpu + "octave.py:186", path="batched fused (phase 11)",
              launches=batch["octave"], entry_point_launches=entry_launches["octave"], **k3),

@@ -1,8 +1,10 @@
 // K2: fused similarity + top-2 for the ratio-test matcher, for sm_90a.
 //
 // Replaces the TPU kernel cusift_tpu/ops/pallas/matcher.py:_pallas_top2
-// (body _kernel).  For every query row a of A [N, D] it scans the rows b of
-// B [M, D] and keeps, over sim = <a, b> with invalid b set to -inf:
+// (body _kernel), and its batching under jax.vmap: a frame axis on the
+// grid.  For each of the nbatch frames and every query row a of its A
+// [N, D] it scans the rows b of its B [M, D] and keeps, over sim = <a, b>
+// with invalid b set to -inf:
 //   s1 = max sim, i1 = its first index, s2 = max sim with column i1 removed
 // (a duplicate of the best score lands in s2).  An all-invalid row gives
 // s1 = s2 = -inf and i1 = 0.  The [N, M] similarity matrix never reaches
@@ -33,6 +35,14 @@
 // so that N = 6144 still fills the card; with P > 1 each block writes a
 // partial top-2 and a second small kernel merges the P partials of a row
 // in split order.  No float atomics: runs are bit-identical.
+//
+// The frame axis is grid.z: frame z reads A, B and valid_b at z times
+// their batch strides, so a side shared by every frame (the reference
+// keyframe of a tracking chunk, the anchor of a BA window) has stride 0
+// and is never copied.  A score is the same sequence of mma.sync over D
+// whichever block or split computes it, and the top-2 merges are exact,
+// so each frame's (top, idx) equals its own single-frame launch word for
+// word, whatever P the batch's plan picks.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -118,14 +128,19 @@ __device__ __forceinline__ void wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// One block: BM query rows x the columns [c_begin, c_end) of its split.
-// part_top [P, N, 2] / part_idx [P, N] (the final outputs when P == 1).
+// One block: BM query rows of frame blockIdx.z x the columns
+// [c_begin, c_end) of its split.  part_top [P, nbatch, N, 2] / part_idx
+// [P, nbatch, N] (the final outputs [nbatch, N, ...] when P == 1).
 __global__ void __launch_bounds__(THREADS, 1)
 match_top2_kernel(const float* __restrict__ A, const float* __restrict__ B,
                   const uint8_t* __restrict__ valid_b,
                   float* __restrict__ part_top, int32_t* __restrict__ part_idx,
-                  int N, int M, int D, int cols_per_split, int final_out, int vec) {
+                  int N, int M, int D, long long stride_a, long long stride_b,
+                  long long stride_v, int cols_per_split, int final_out, int vec) {
   extern __shared__ __align__(16) float sm[];
+  A += blockIdx.z * stride_a;
+  B += blockIdx.z * stride_b;
+  valid_b += blockIdx.z * stride_v;
   float* a_hi = sm;                       // [BM][LD]
   float* a_lo = a_hi + BM * LD;           // [BM][LD]; raw A until split
   float* b_st = a_lo + BM * LD;           // [2][BN][LD] raw B stages
@@ -254,7 +269,7 @@ match_top2_kernel(const float* __restrict__ A, const float* __restrict__ B,
       if (row >= N) continue;
       const Top2 m = merge(run[i], Top2{xch[3 * rl], xch[3 * rl + 1],
                                          __float_as_int(xch[3 * rl + 2])});
-      const size_t o = (size_t)blockIdx.y * N + row;
+      const size_t o = ((size_t)blockIdx.y * gridDim.z + blockIdx.z) * N + row;
       part_top[2 * o] = m.s1;
       part_top[2 * o + 1] = m.s2;
       part_idx[o] = (final_out && m.i1 == NONE) ? 0 : m.i1;
@@ -262,16 +277,17 @@ match_top2_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-// Second pass for P > 1: merge each row's P partials in split order.
+// Second pass for P > 1: merge each row's P partials in split order;
+// `rows` counts the rows of every frame (nbatch * N).
 __global__ void merge_splits_kernel(const float* __restrict__ part_top,
                                     const int32_t* __restrict__ part_idx,
                                     float* __restrict__ top, int32_t* __restrict__ idx,
-                                    int N, int P) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
+                                    long long rows, int P) {
+  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
   Top2 m{-CUDART_INF_F, -CUDART_INF_F, NONE};
   for (int p = 0; p < P; ++p) {
-    const size_t o = (size_t)p * N + row;
+    const size_t o = (size_t)p * rows + row;
     m = merge(m, Top2{part_top[2 * o], part_top[2 * o + 1], part_idx[o]});
   }
   top[2 * (size_t)row] = m.s1;
@@ -282,30 +298,35 @@ __global__ void merge_splits_kernel(const float* __restrict__ part_top,
 }  // namespace
 
 // The plan (splits P, cols_per_split) comes from kernels/matcher.py:
-// _launch_plan; part_top [P, N, 2] and part_idx [P, N] are scratch for
-// P > 1 and unused (may be null) for P == 1.
+// _launch_plan; part_top [P, nbatch, N, 2] and part_idx [P, nbatch, N]
+// are scratch for P > 1 and unused (may be null) for P == 1.  The batch
+// strides are in elements; 0 shares a side across the frames.
 extern "C" int cusift_match_top2(const void* a, const void* b, const void* valid_b,
                                  void* top, void* idx, void* part_top, void* part_idx,
-                                 int N, int M, int D, int P, int cols_per_split,
-                                 void* stream) {
-  if (N <= 0 || M <= 0 || D <= 0 || D > DMAX || P < 1 || cols_per_split < BN
+                                 int nbatch, int N, int M, int D, long long stride_a,
+                                 long long stride_b, long long stride_v, int P,
+                                 int cols_per_split, void* stream) {
+  if (nbatch <= 0 || nbatch > 65535 || N <= 0 || M <= 0 || D <= 0 || D > DMAX
+      || stride_a < 0 || stride_b < 0 || stride_v < 0 || P < 1 || cols_per_split < BN
       || cols_per_split % BN != 0 || (long long)(P - 1) * cols_per_split >= M
       || (long long)P * cols_per_split < M || (P > 1 && (!part_top || !part_idx)))
     return (int)cudaErrorInvalidValue;
-  const bool vec = D % 4 == 0 && ((uintptr_t)a % 16 == 0) && ((uintptr_t)b % 16 == 0);
+  const bool vec = D % 4 == 0 && stride_a % 4 == 0 && stride_b % 4 == 0
+                   && ((uintptr_t)a % 16 == 0) && ((uintptr_t)b % 16 == 0);
   cudaError_t err = cudaFuncSetAttribute(
       match_top2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((unsigned)((N + BM - 1) / BM), (unsigned)P);
+  const dim3 grid((unsigned)((N + BM - 1) / BM), (unsigned)P, (unsigned)nbatch);
   match_top2_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
       (const float*)a, (const float*)b, (const uint8_t*)valid_b,
       (float*)(P > 1 ? part_top : top), (int32_t*)(P > 1 ? part_idx : idx),
-      N, M, D, cols_per_split, P == 1, vec);
+      N, M, D, stride_a, stride_b, stride_v, cols_per_split, P == 1, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess || P == 1) return (int)err;
-  merge_splits_kernel<<<(N + 255) / 256, 256, 0, s>>>(
+  const long long rows = (long long)nbatch * N;
+  merge_splits_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
       (const float*)part_top, (const int32_t*)part_idx, (float*)top, (int32_t*)idx,
-      N, P);
+      rows, P);
   return (int)cudaGetLastError();
 }

@@ -30,7 +30,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # C signature of each entry point: (argtypes, restype); every function
 # returns its cudaError_t as an int.
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     # K1, K4-K6 take B frames of N slots each
     # K1: gauss, lvl, ys, xs, dx, dy, inb, L, H, W, B, N, S, stream
@@ -44,9 +44,10 @@ SIGNATURES = {
     # K5: gauss, lvl, ys, xs, theta, wv, w_spatial, raw, L, H, W, B, N, S,
     #     NB, CELLS, SLOTS, CHUNK, THREADS, SMEM, stream
     "cusift_sample_desc_raw": ((_P,) * 8 + (_I,) * 12 + (_P,), _I),
-    # K2: a, b, valid_b, top, idx, part_top, part_idx, N, M, D, P,
+    # K2: a, b, valid_b, top, idx, part_top, part_idx, nbatch, N, M, D,
+    #     stride_a, stride_b, stride_v (elements; 0 = shared), P,
     #     cols_per_split, stream
-    "cusift_match_top2": ((_P,) * 7 + (_I,) * 5 + (_P,), _I),
+    "cusift_match_top2": ((_P,) * 7 + (_I,) * 4 + (_L,) * 3 + (_I,) * 2 + (_P,), _I),
     # K3: padded, samp, dog, score, taps (host), radii (host), nlev, R, B,
     #     H, W, band_rows, window_rows, vbuf_stride, smem_bytes, prefilter,
     #     stream

@@ -24,7 +24,8 @@ def _world_points(kf_pts, poses_r, poses_t):
 
 
 def _to_camera(pts_w, poses_r, poses_t):
-    """[W, N, 3] world points -> each keyframe's camera frame."""
+    """[W, N, 3] world points ([N, 3] shared by the window) -> each
+    keyframe's camera frame."""
     return pts_w @ poses_r.transpose(-1, -2) + poses_t[:, None, :]
 
 
@@ -90,7 +91,9 @@ def build_window_problem(kf_desc, kf_valid, kf_pts, poses_r, poses_t,
 
     Landmarks anchor to the NEWEST keyframe: its valid backprojections in
     world coordinates, matched against every window keyframe (itself
-    included).  The observations are the [W, N] grid (`BAProblem.grid`).
+    included) in one batched match (the anchor's descriptors shared by the
+    W keyframes: the reference's `jax.vmap(assoc)`, one K2 launch).  The
+    observations are the [W, N] grid (`BAProblem.grid`).
     """
     w, n = kf_valid.shape
     fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
@@ -99,27 +102,23 @@ def build_window_problem(kf_desc, kf_valid, kf_pts, poses_r, poses_t,
     valid_j = kf_valid[anchor] & (pts_j[:, 2] > 1e-6)
     points_w = (pts_j - poses_t[anchor]) @ poses_r[anchor]        # R^T (X_c - t)
 
-    uvs, oks = [], []
-    for k in range(w):
-        m = match(kf_desc[anchor], valid_j, kf_desc[k], kf_valid[k], match_cfg)
-        pk = kf_pts[k][m.idx.long()]                              # [N, 3]
-        uv = project(pk, fx, fy, cx, cy)
-        ok = m.ok & valid_j & (pk[:, 2] > 1e-6)
-        # projection gate: a descriptor match far from the landmark's
-        # predicted projection under the current pose is a misassociation
-        pc = points_w @ poses_r[k].T + poses_t[k]
-        pred = project(pc, fx, fy, cx, cy)
-        ok = ok & (pc[:, 2] > 1e-2) & (((uv - pred) ** 2).sum(-1) < gate_px ** 2)
-        uvs.append(uv)
-        oks.append(ok)
-    ok = torch.stack(oks) & (win_mask[:, None] > 0)
+    m = match(kf_desc[anchor], valid_j, kf_desc, kf_valid, match_cfg)   # [W, N]
+    pk = torch.gather(kf_pts, 1, m.idx.long()[..., None].expand(-1, -1, 3))  # [W, N, 3]
+    uv = project(pk, fx, fy, cx, cy)
+    ok = m.ok & valid_j & (pk[..., 2] > 1e-6)
+    # projection gate: a descriptor match far from the landmark's
+    # predicted projection under the current pose is a misassociation
+    pc = _to_camera(points_w, poses_r, poses_t)                   # [W, N, 3]
+    pred = project(pc, fx, fy, cx, cy)
+    ok = (ok & (pc[..., 2] > 1e-2) & (((uv - pred) ** 2).sum(-1) < gate_px ** 2)
+          & (win_mask[:, None] > 0))
 
     dev = kf_pts.device
     cam_idx = torch.arange(w, device=dev).repeat_interleave(n)
     pt_idx = torch.arange(n, device=dev).repeat(w)
     return BAProblem(
         poses_r=poses_r, poses_t=poses_t, points=points_w, intr=intr,
-        cam_idx=cam_idx, pt_idx=pt_idx, uv=torch.stack(uvs).reshape(-1, 2),
+        cam_idx=cam_idx, pt_idx=pt_idx, uv=uv.reshape(-1, 2),
         w=ok.reshape(-1).to(torch.float32), grid=True)
 
 

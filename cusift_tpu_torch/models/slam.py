@@ -23,12 +23,13 @@ one by one.  With `defer_events` the event's fetch waits until the next
 reader of the pose/edge state.
 
 `run(chunk=N)` tracks N frames a step against one reference keyframe
-(`_chunk_step`: one `extract_batch` over the N images, then matching and
-RANSAC frame by frame) and copies the [N, 22] rows to the host once; the
-host then commits the frames in order, re-gating keyframe promotion
-against any keyframe inserted earlier in the chunk.  Row i equals
-`_frame_step` of frame i against the same reference with the same
-generator, to the bit.
+(`_chunk_step`, the reference's `jax.vmap(_frame_step)`: one
+`extract_batch` over the N images, one batched match against the shared
+keyframe and one batched rigid RANSAC) and copies the [N, 22] rows to the
+host once; the host then commits the frames in order, re-gating keyframe
+promotion against any keyframe inserted earlier in the chunk.  Row i
+equals `_frame_step` of frame i (the same code at N = 1) against the same
+reference with the same generator, to the bit.
 
 Randomness: each RANSAC call gets its own `torch.Generator`, seeded from
 (seed, counter) as the reference derives one threefry key per call, so
@@ -77,9 +78,9 @@ _SCORE_BLOCK = 16
 
 def _f32(*xs) -> torch.Tensor:
     """Scalars (tensors or numbers) as one float32 vector on the first
-    tensor's device."""
+    tensor's device; [B] tensors give [B, len(xs)]."""
     dev = next(x.device for x in xs if isinstance(x, torch.Tensor))
-    return torch.stack([torch.as_tensor(x, device=dev).to(torch.float32) for x in xs])
+    return torch.stack([torch.as_tensor(x, device=dev).to(torch.float32) for x in xs], -1)
 
 
 def _frame_of(feats: SiftFeatures, i: int) -> SiftFeatures:
@@ -89,7 +90,7 @@ def _frame_of(feats: SiftFeatures, i: int) -> SiftFeatures:
 
 def _backproject_features(f: SiftFeatures, depth, intr):
     """Camera-frame 3D points of the features (z = 0 where invalid) and
-    their validity."""
+    their validity; over the frame axis of a batch (depth [B, H, W])."""
     d = depth_at(depth, f.x, f.y) * f.valid
     pts = backproject(torch.stack([f.x, f.y], -1), d, intr[0], intr[1], intr[2], intr[3])
     return pts, (d > 1e-6) & f.valid
@@ -110,20 +111,31 @@ def _track(desc_a, valid_a, pts_a, desc_b, valid_b, pts_b,
     return find_rigid(pts_a, pb, ok, ransac_cfg, generator), m
 
 
-def _tracking_row(f: SiftFeatures, pts, pvalid, ref_desc, ref_valid, ref_pts,
-                  match_cfg: MatchConfig, ransac_cfg: RansacConfig, generator):
-    """Match + rigid RANSAC of one frame against the reference keyframe,
-    with the keyframe-decision scalars packed into ONE [22] float tensor
-    [inliers, ok, kpts, matches | rel_r 9 | rel_t 3 | xi 6]."""
+def _tracking_rows(f: SiftFeatures, pts, pvalid, ref_desc, ref_valid, ref_pts,
+                   match_cfg: MatchConfig, ransac_cfg: RansacConfig, generators):
+    """Match + rigid RANSAC of a batch of B frames (features [B, K, ...],
+    points [B, K, 3]) against the one reference keyframe: one batched
+    match, one batched `find_rigid` (frame b draws from generators[b]),
+    and each frame's keyframe-decision scalars packed into one [B, 22]
+    float tensor, rows [inliers, ok, kpts, matches | rel_r 9 | rel_t 3 |
+    xi 6]."""
     m = match(f.desc, f.valid, ref_desc, ref_valid, match_cfg)
     pb = ref_pts[m.idx.long()]
-    ok = m.ok & pvalid & (pb[:, 2] > 1e-6)
-    rig = find_rigid(pts, pb, ok, ransac_cfg, generator)
+    ok = m.ok & pvalid & (pb[..., 2] > 1e-6)
+    rig = find_rigid(pts, pb, ok, ransac_cfg, generators)
     # rig: X_ref = R X_cur + t  =>  T_cur<-ref = (R, t)^-1
     rel_r, rel_t = inverse(rig.r, rig.t)
     xi = se3_log(rel_r, rel_t)
-    return torch.cat([_f32(rig.num_inliers, rig.ok, f.valid.sum(), m.ok.sum()),
-                      rel_r.reshape(-1), rel_t, xi])
+    return torch.cat([_f32(rig.num_inliers, rig.ok, f.valid.sum(-1), m.ok.sum(-1)),
+                      rel_r.flatten(-2), rel_t, xi], -1)
+
+
+def _tracking_row(f: SiftFeatures, pts, pvalid, ref_desc, ref_valid, ref_pts,
+                  match_cfg: MatchConfig, ransac_cfg: RansacConfig, generator):
+    """`_tracking_rows` of one frame: its [22] row."""
+    return _tracking_rows(SiftFeatures(*(a[None] for a in f)), pts[None], pvalid[None],
+                          ref_desc, ref_valid, ref_pts, match_cfg, ransac_cfg,
+                          [generator])[0]
 
 
 @f32_matmuls
@@ -142,22 +154,20 @@ def _chunk_step(frames, intr, ref_desc, ref_valid, ref_pts,
                 sift_cfg: SiftConfig, match_cfg: MatchConfig,
                 ransac_cfg: RansacConfig, generators):
     """Track a [N, 2, H, W] chunk of (image, depth) frames against ONE
-    reference keyframe: one `extract_batch` over the N images, then each
-    frame's backprojection, match and rigid RANSAC with its own generator.
+    reference keyframe, as the reference's `jax.vmap(_frame_step)`: one
+    `extract_batch` over the N images, the backprojections over the batch,
+    then one batched match and rigid RANSAC (`_tracking_rows`; frame i
+    draws from generators[i]).
 
     Returns the batched features, the points [N, K, 3] and the packed rows
     [N, 22], the one tensor the host copies per chunk.  Row i equals
     `_frame_step` of frame i with generator i.
     """
     feats = extract_batch(frames[:, 0].contiguous(), sift_cfg)
-    pts, rows = [], []
-    for i, gen in enumerate(generators):
-        f = _frame_of(feats, i)
-        p, pvalid = _backproject_features(f, frames[i, 1], intr)
-        rows.append(_tracking_row(f, p, pvalid, ref_desc, ref_valid, ref_pts,
-                                  match_cfg, ransac_cfg, gen))
-        pts.append(p)
-    return feats, torch.stack(pts), torch.stack(rows)
+    pts, pvalid = _backproject_features(feats, frames[:, 1], intr)
+    rows = _tracking_rows(feats, pts, pvalid, ref_desc, ref_valid, ref_pts,
+                          match_cfg, ransac_cfg, generators)
+    return feats, pts, rows
 
 
 @f32_matmuls

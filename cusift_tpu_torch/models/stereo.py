@@ -8,7 +8,10 @@ stereo pairs at metric scale.  A tracking step extracts both images in
 one `extract_batch` (kernel K1 in every octave of each), matches left to
 right for depth (K2) and left to the keyframe for tracking (K2, then
 rigid RANSAC), and packs the same [22] row as `_frame_step`, so
-`Slam._commit` applies it as it stands.
+`Slam._commit` applies it as it stands.  A chunk of N pairs
+(`_stereo_chunk_step`, the reference's `jax.vmap(_stereo_frame_step)`)
+takes one `extract_batch` of its 2N images, one batched left-right match
+and one batched tracking match + RANSAC: two K2 launches.
 """
 
 from __future__ import annotations
@@ -22,13 +25,14 @@ from ..ops.stereo import stereo_depth
 from ..utils.device import as_input
 from ..utils.precision import f32_matmuls
 from .sift import SiftFeatures, extract_batch
-from .slam import Slam, _frame_of, _tracking_row
+from .slam import Slam, _frame_of, _tracking_row, _tracking_rows
 
 
 def _stereo_points(fl: SiftFeatures, fr: SiftFeatures, intr, baseline,
                    match_cfg: MatchConfig):
     """Metric 3D points of the left features (z = 0 where no admissible
-    right match) and their validity."""
+    right match) and their validity; over the frame axis of a batch of
+    pairs (one batched `stereo_depth`)."""
     depth, dok = stereo_depth(fl.desc, fl.valid, fl.x, fl.y, fr.desc, fr.valid,
                               fr.x, fr.y, intr[0], baseline, match_cfg)
     pts = backproject(torch.stack([fl.x, fl.y], -1), depth,
@@ -62,22 +66,20 @@ def _stereo_chunk_step(frames, intr, baseline, ref_desc, ref_valid, ref_pts,
                        sift_cfg: SiftConfig, match_cfg: MatchConfig,
                        ransac_cfg: RansacConfig, generators):
     """Track a [N, 2, H, W] chunk of (left, right) pairs against ONE
-    reference keyframe: one `extract_batch` over the 2N images, then each
-    frame's stereo depth, match and rigid RANSAC with its own generator.
-    Returns the left features [N, ...], points [N, K, 3] and rows [N, 22].
+    reference keyframe, as the reference's `jax.vmap(_stereo_frame_step)`:
+    one `extract_batch` over the 2N images, one batched stereo depth over
+    the N pairs, then one batched match and rigid RANSAC (frame i draws
+    from generators[i]).  Returns the left features [N, ...], points
+    [N, K, 3] and rows [N, 22]; row i equals `_stereo_frame_step` of pair i.
     """
     n = frames.shape[0]
     f2 = extract_batch(frames.reshape((2 * n,) + frames.shape[2:]), sift_cfg)
-    pts, rows = [], []
-    for i, gen in enumerate(generators):
-        fl = _frame_of(f2, 2 * i)
-        p, pvalid = _stereo_points(fl, _frame_of(f2, 2 * i + 1), intr, baseline,
-                                   match_cfg)
-        rows.append(_tracking_row(fl, p, pvalid, ref_desc, ref_valid, ref_pts,
-                                  match_cfg, ransac_cfg, gen))
-        pts.append(p)
     left = SiftFeatures(*(a[0::2] for a in f2))
-    return left, torch.stack(pts), torch.stack(rows)
+    right = SiftFeatures(*(a[1::2] for a in f2))
+    pts, pvalid = _stereo_points(left, right, intr, baseline, match_cfg)
+    rows = _tracking_rows(left, pts, pvalid, ref_desc, ref_valid, ref_pts,
+                          match_cfg, ransac_cfg, generators)
+    return left, pts, rows
 
 
 class StereoSlam(Slam):

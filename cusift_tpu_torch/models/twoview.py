@@ -80,10 +80,12 @@ def match_pair(img_a, img_b,
 
 def depth_at(depth: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     """Depth at the nearest pixel of (xs, ys), rounding half to even as the
-    reference's `jnp.round` does (`torch.round` does the same)."""
-    xi = torch.round(xs).long().clamp(0, depth.shape[1] - 1)
-    yi = torch.round(ys).long().clamp(0, depth.shape[0] - 1)
-    return depth[yi, xi]
+    reference's `jnp.round` does (`torch.round` does the same).  depth
+    [..., H, W] with xs, ys [..., N] over the same leading (frame) axes."""
+    h, w = depth.shape[-2:]
+    xi = torch.round(xs).long().clamp(0, w - 1)
+    yi = torch.round(ys).long().clamp(0, h - 1)
+    return torch.gather(depth.flatten(-2), -1, yi * w + xi)
 
 
 @f32_matmuls

@@ -3,7 +3,11 @@
 
 Every solver broadcasts over leading batch dimensions, which replaces the
 reference's `vmap` over RANSAC hypotheses: pts [..., N, 2|3] and weights
-[..., N] (either may carry the batch).
+[..., N] (either may carry the batch).  `procrustes` and
+`rotation_from_cross_covariance` also carry the frame axis of the tracking
+chunk, so they sum and multiply in an order that does not depend on the
+leading axes (`mat3.tree_sum`, `mat3.matmul_small`): frame b of a batch
+equals the frame alone, bit for bit.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import math
 import torch
 
 from ..utils.precision import f32_matmuls
-from .mat3 import inv3, solve_spd
+from .mat3 import inv3, matmul_small, solve_spd, tree_sum
 
 
 @f32_matmuls
@@ -99,22 +103,31 @@ def procrustes(pa: torch.Tensor, pb: torch.Tensor, w: torch.Tensor,
     symmetric 4x4 built from the cross-covariance, found by an unrolled
     shifted power iteration -- elementwise tensor math over any batch of
     hypotheses, always a proper rotation.  pa, pb: [..., N, 3]; w: [..., N]
-    non-negative weights.
+    non-negative weights.  The sums over the N points are pairwise trees
+    (`tree_sum`), so a frame's fit does not depend on the batch around it.
     """
-    wsum = w.sum(-1).clamp(min=1e-12)[..., None]
-    ca = (pa * w[..., None]).sum(-2) / wsum
-    cb = (pb * w[..., None]).sum(-2) / wsum
+    pat, pbt = pa.transpose(-1, -2), pb.transpose(-1, -2)        # [..., 3, N]
+    sums = tree_sum(torch.cat([w[..., None, :], pat * w[..., None, :],
+                                pbt * w[..., None, :]], -2), -1)   # [..., 7]
+    wsum = sums[..., :1].clamp(min=1e-12)
+    ca, cb = sums[..., 1:4] / wsum, sums[..., 4:7] / wsum
     # Horn convention: S[i, j] = sum_n a_i b_j (A -> B rotation)
-    s_ = ((pa - ca[..., None, :]) * w[..., None]).transpose(-1, -2) @ (pb - cb[..., None, :])
-    r = rotation_from_cross_covariance(s_, iters)
-    return r, cb - (r @ ca[..., None])[..., 0]
+    da = (pat - ca[..., :, None]) * w[..., None, :]
+    db = pbt - cb[..., :, None]
+    s_ = tree_sum(da[..., :, None, :] * db[..., None, :, :], -1)   # [..., 3, 3]
+    r = rotation_from_cross_covariance(s_, iters, fixed_order=True)
+    return r, cb - matmul_small(r, ca[..., None])[..., 0]
 
 
 @f32_matmuls
-def rotation_from_cross_covariance(s_: torch.Tensor,
-                                   iters: int = 16) -> torch.Tensor:
+def rotation_from_cross_covariance(s_: torch.Tensor, iters: int = 16,
+                                   fixed_order: bool = False) -> torch.Tensor:
     """Rotation maximising tr(R S) from [..., 3, 3] cross-covariances S
-    (Horn's quaternion eigenvector)."""
+    (Horn's quaternion eigenvector).  `fixed_order` multiplies the 4x4
+    matrices in an order that does not depend on the leading axes
+    (`matmul_small`), as the frame-batched `procrustes` needs; without it
+    they are torch matmuls (PnP's nearest rotation).  The norms are sums
+    of 4 and 16 contiguous elements, whose order does not move either."""
     sxx, sxy, sxz = s_[..., 0, 0], s_[..., 0, 1], s_[..., 0, 2]
     syx, syy, syz = s_[..., 1, 0], s_[..., 1, 1], s_[..., 1, 2]
     szx, szy, szz = s_[..., 2, 0], s_[..., 2, 1], s_[..., 2, 2]
@@ -126,14 +139,15 @@ def rotation_from_cross_covariance(s_: torch.Tensor,
     ], -2)
     # shift so the largest eigenvalue of N dominates in magnitude, then
     # square the matrix four times: one matvec then applies M^16
+    matmul = matmul_small if fixed_order else torch.matmul
     shift = torch.sqrt((n * n).sum((-1, -2)))[..., None, None] + 1e-12
     m = n / shift + torch.eye(4, dtype=n.dtype, device=n.device)
     for _ in range(4):
-        m = m @ m
+        m = matmul(m, m)
         m = m / torch.sqrt((m * m).sum((-1, -2))).clamp(min=1e-20)[..., None, None]
     q = torch.full(n.shape[:-1], 0.5, dtype=n.dtype, device=n.device)
     for _ in range(iters):
-        q = (m @ q[..., None])[..., 0]
+        q = matmul(m, q[..., None])[..., 0]
         q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True).clamp(min=1e-20)
     qw, qx, qy, qz = q.unbind(-1)
     return torch.stack([

@@ -62,6 +62,36 @@ def solve3(m: torch.Tensor, b: torch.Tensor, eps: float = 1e-12):
     return torch.where(ok[..., None], x, torch.zeros_like(x)), ok
 
 
+def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over `dim` as a fixed pairwise tree of elementwise adds, the
+    axis zero-padded to a power of two: x[:h] + x[h:] until one row is
+    left.  The order of the adds is the same whatever the other axes,
+    where a reduction kernel's split of a long or strided axis may move
+    with the number of rows it reduces (the batch of frames around one)."""
+    dim = dim % x.ndim
+    n = x.shape[dim]
+    size = 1 << max(n - 1, 0).bit_length()
+    if size > n:
+        pad = list(x.shape)
+        pad[dim] = size - n
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
+
+
+def matmul_small(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., n, k] @ b [..., k, m] for a short k (3 or 4) as one broadcast
+    product and one sum over k contiguous terms, elementwise over the
+    (broadcast) leading axes.  A batched matmul's algorithm, and so its
+    bits, may change with the batch's size (on the CPU from one matrix to
+    two); a reduction over at most 32 contiguous elements keeps each row's
+    order whatever the number of rows (on the card a row takes one warp or
+    less, an element a lane; on the CPU a row is summed alone)."""
+    return (a[..., :, None, :] * b.transpose(-1, -2)[..., None, :, :]).sum(-1)
+
+
 def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b for small SPD A [..., n, n] via unrolled Cholesky.
 

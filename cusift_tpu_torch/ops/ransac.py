@@ -7,6 +7,12 @@ broadcast, and the winner is polished by IRLS on its inliers.  Random
 samples come from a `torch.Generator`; with none, one is seeded from
 `cfg.seed`.  Torch cannot reproduce jax's threefry stream, so the tests
 hold this module on outcomes, or feed both packages the same indices.
+
+`find_rigid` also takes a leading frame axis with one generator a frame,
+which replaces the reference's `jax.vmap(find_rigid)` in the tracking
+chunk: each frame draws its hypotheses from its own generator, and the
+solves, scoring and IRLS rounds run once for the batch, in an order that
+makes frame b equal the frame alone, bit for bit.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ class HomographyResult(NamedTuple):
 
 
 class RigidResult(NamedTuple):
+    """One fit, or [B, ...] for a batch of frames."""
+
     r: torch.Tensor            # [3, 3]
     t: torch.Tensor            # [3]
     inliers: torch.Tensor      # [N] bool
@@ -110,39 +118,61 @@ def improve_homography(h: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
 
 
 def _rigid_sq_err(r, t, pa, pb):
-    """[..., N] squared 3-D residuals of pb ~ R pa + t for [..., 3, 3] R."""
-    return ((pa @ r.transpose(-1, -2) + t[..., None, :] - pb) ** 2).sum(-1)
+    """[..., N] squared 3-D residuals of pb ~ R pa + t for [..., 3, 3] R and
+    [..., 3] t (broadcast against pa, pb [..., N, 3]), a coordinate at a
+    time: each a product summed over 3 contiguous terms, whose order does
+    not move with the batch around a frame (a batched matmul's does), in
+    the [..., HYP, N, 3] width of one product."""
+    sq = [((pa * r[..., c, None, :]).sum(-1) + t[..., c, None] - pb[..., c]) ** 2
+          for c in range(3)]
+    return sq[0] + sq[1] + sq[2]
 
 
 @f32_matmuls
 def find_rigid(pa: torch.Tensor, pb: torch.Tensor, valid: torch.Tensor,
                cfg: RansacConfig = RansacConfig(),
-               generator: torch.Generator | None = None) -> RigidResult:
+               generator=None) -> RigidResult:
     """RANSAC rigid transform (R, t) with R @ pa + t ~ pb on [N, 3] points.
 
     The RGB-D alignment of cuSIFT: 3-point Procrustes hypotheses, the
     `inlier_thresh_3d` gate, and `refine_iters` weighted Procrustes rounds
-    on the winner's inliers.
+    on the winner's inliers.  pa, pb [B, N, 3] and valid [B, N] fit B
+    frames at once, with `generator` a sequence of B generators (frame b
+    draws from generator b, as the frame alone would); the result carries
+    the B axis.
     """
-    if generator is None:
-        generator = torch.Generator(device=pa.device).manual_seed(cfg.seed)
-    idx = _sample_indices(generator, valid, cfg.num_hypotheses, 3)
+    batched = pa.ndim == 3
+    if not batched:
+        pa, pb, valid = pa[None], pb[None], valid[None]
+        generator = [generator]
+    gens = [torch.Generator(device=pa.device).manual_seed(cfg.seed) if g is None else g
+            for g in generator]
+    if len(gens) != pa.shape[0]:
+        raise ValueError(f"find_rigid: {len(gens)} generators for {pa.shape[0]} frames")
+    # each frame's draws from its own generator (the reference splits one
+    # key a frame), then every solve once for the batch
+    idx = torch.stack([_sample_indices(g, v, cfg.num_hypotheses, 3)
+                       for g, v in zip(gens, valid)])            # [B, HYP, 3]
+    frames = torch.arange(pa.shape[0], device=pa.device)
     # the 3 sampled points with unit weights == one-hot weights over all N
     ones = torch.ones(idx.shape, dtype=pa.dtype, device=pa.device)
-    rs, ts = procrustes(pa[idx], pb[idx], ones)              # [HYP, 3, 3], [HYP, 3]
+    rs, ts = procrustes(pa[frames[:, None, None], idx],
+                        pb[frames[:, None, None], idx], ones)    # [B, HYP, 3, 3], [B, HYP, 3]
     thr = cfg.inlier_thresh_3d ** 2
-    finite = torch.isfinite(rs.reshape(rs.shape[0], -1)).all(-1)
-    counts = ((_rigid_sq_err(rs, ts, pa, pb) < thr) & valid).sum(-1)
+    finite = torch.isfinite(rs.flatten(-2)).all(-1)
+    counts = ((_rigid_sq_err(rs, ts, pa[:, None], pb[:, None]) < thr)
+              & valid[:, None]).sum(-1)                          # [B, HYP]
     counts = torch.where(finite, counts, torch.full_like(counts, -1))
-    best = torch.argmax(counts)
-    r, t = rs[best], ts[best]
+    best = torch.argmax(counts, -1)
+    r, t = rs[frames, best], ts[frames, best]
     for _ in range(cfg.refine_iters):
         w = ((_rigid_sq_err(r, t, pa, pb) < thr) & valid).to(pa.dtype)
         r2, t2 = procrustes(pa, pb, w)
-        good = (torch.isfinite(r2).all() & torch.isfinite(t2).all()
-                & (w.sum() >= 3))
-        r, t = torch.where(good, r2, r), torch.where(good, t2, t)
+        good = (torch.isfinite(r2).flatten(-2).all(-1) & torch.isfinite(t2).all(-1)
+                & (w.sum(-1) >= 3))
+        r, t = torch.where(good[:, None, None], r2, r), torch.where(good[:, None], t2, t)
     inliers = (_rigid_sq_err(r, t, pa, pb) < thr) & valid
-    num = inliers.sum()
-    ok = (valid.sum() >= cfg.min_matches) & (num >= 3)
-    return RigidResult(r=r, t=t, inliers=inliers, num_inliers=num, ok=ok)
+    num = inliers.sum(-1)
+    ok = (valid.sum(-1) >= cfg.min_matches) & (num >= 3)
+    res = RigidResult(r=r, t=t, inliers=inliers, num_inliers=num, ok=ok)
+    return res if batched else RigidResult(*(x[0] for x in res))

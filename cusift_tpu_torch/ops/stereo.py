@@ -25,11 +25,13 @@ def stereo_depth(desc_l, valid_l, x_l, y_l, desc_r, valid_r, x_r, y_r,
     exists.  Gates: the ratio-test match, |row difference| <= row_tol px,
     disparity above min_disp px (distant points carry no stereo
     information) and below fx*b/min_depth (a gross mismatch would give an
-    absurdly near point).
+    absurdly near point).  With a leading frame axis on both sides ([B, N]
+    lefts, [B, M] rights) the B pairs take one batched match, and pair b
+    equals the pair alone, bit for bit.
     """
     m = match(desc_l, valid_l, desc_r, valid_r, match_cfg)
     idx = m.idx.long()
-    xr, yr = x_r[idx], y_r[idx]
+    xr, yr = torch.gather(x_r, -1, idx), torch.gather(y_r, -1, idx)
     disp = x_l - xr
     fb = fx * baseline
     ok = (m.ok & valid_l & ((y_l - yr).abs() <= row_tol)

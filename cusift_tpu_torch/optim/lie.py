@@ -3,13 +3,17 @@
 Elementwise over leading batch dimensions and differentiable, forward mode
 included (`torch.func.jacfwd`): the small-angle Taylor branches sit behind
 `torch.where` and the norms are floored at 1e-24 before the square root,
-so Jacobians at zero twist stay finite, as in the reference.
+so Jacobians at zero twist stay finite, as in the reference.  `inverse`
+and `se3_log`, which the tracking chunk runs over its frame axis, multiply
+their 3x3 matrices with `ops/mat3.py:matmul_small`, so frame b of a batch
+equals the frame alone, bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.mat3 import matmul_small
 from ..utils.precision import f32_matmuls
 
 _EPS = 1e-8
@@ -101,7 +105,7 @@ def _left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
         small, 1.0 / 12.0 + th * th / 720.0,
         (1.0 - 0.5 * ths * torch.sin(ths)
          / torch.clamp(1.0 - torch.cos(ths), min=_EPS)) / (ths * ths))
-    return _eye3(w) - 0.5 * k + cot * (k @ k)
+    return _eye3(w) - 0.5 * k + cot * matmul_small(k, k)
 
 
 @f32_matmuls
@@ -115,7 +119,7 @@ def se3_exp(xi: torch.Tensor):
 def se3_log(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(R, t) -> [..., 6] twist (v, w)."""
     w = so3_log(r)
-    v = (_left_jacobian_inv(w) @ t[..., None])[..., 0]
+    v = matmul_small(_left_jacobian_inv(w), t[..., None])[..., 0]
     return torch.cat([v, w], -1)
 
 
@@ -134,7 +138,7 @@ def compose(ra, ta, rb, tb):
 @f32_matmuls
 def inverse(r, t):
     rt = r.transpose(-1, -2)
-    return rt, -(rt @ t[..., None])[..., 0]
+    return rt, -matmul_small(rt, t[..., None])[..., 0]
 
 
 @f32_matmuls

@@ -6,7 +6,8 @@ K1 in every octave) and the features come back whole on every rank.
 Retrieval against a keyframe database splits the database's descriptor
 axis over "map": each rank scores its slice and a max all-reduce combines
 the partial maxima.  Pair matching splits a batch of descriptor-set pairs
-over "frames" (kernel K2 a pair).
+over "frames" (one batched K2 launch a rank, the reference's
+`jax.vmap(match)`).
 
 Every rank passes the whole inputs (the reference's global arrays) and
 gets the whole result; the call is collective over the mesh.
@@ -64,5 +65,5 @@ def match_pairs_sharded(desc_a: torch.Tensor, valid_a: torch.Tensor,
     Matches with a leading B axis.
     """
     da, va, db, vb = (block(x, mesh, FRAMES) for x in (desc_a, valid_a, desc_b, valid_b))
-    local = [match(da[i], va[i], db[i], vb[i], cfg) for i in range(da.shape[0])]
-    return Matches(*(all_gather_rows(torch.stack(xs), mesh, FRAMES) for xs in zip(*local)))
+    local = match(da, va, db, vb, cfg)             # one batched match of the rank's frames
+    return Matches(*(all_gather_rows(x, mesh, FRAMES) for x in local))

@@ -19,8 +19,10 @@ bit-identical.  The RGB-D paths on the card: `align_rgbd_pair` within
 0.01 (R) and 0.01 m (t) of ground truth, and a short `Slam` run whose
 fused and split events agree within 1e-3 and whose deferred and eager
 events agree bit for bit.  Chunked tracking: a chunk step's rows equal the
-sequential steps' bit for bit; `device_chunks` delivers `device_frames`'
-tensors.  Stereo: `_extract_stereo_points` on the card against the CPU,
+sequential steps' bit for bit, with one K2 launch a chunk (two on the
+stereo chunk) and one a window BA association; a batched K2 launch equals
+its frames' single launches word for word at P = 1 and P > 1;
+`device_chunks` delivers `device_frames`' tensors.  Stereo: `_extract_stereo_points` on the card against the CPU,
 admissible counts within 1%, depths within 1e-4 relative.  Mono VO:
 `pair_step` on the card against the CPU on the same frame-A features,
 with the same RANSAC samples (each device's generator is its own, so the
@@ -218,6 +220,62 @@ def test_matcher_kernel_tie_across_splits(dev):
     top, idx = k2.top2(ta, tb, vb)
     assert int(idx[1]) == hi and float(top[1, 1]) < float(top[1, 0])
     _check_top2(top, idx, *k2.top2_plain(ta, tb, vb))
+
+
+def _batched_operands(rng, dev, frames, n, m, shared):
+    """A [frames, n] / B [frames, m] descriptor sets with B's valid mask,
+    `shared` naming the side given without the frame axis (or "none")."""
+    a = torch.from_numpy(np.stack([_unit(rng, n) for _ in range(frames)])).to(dev)
+    b = torch.from_numpy(np.stack([_unit(rng, m) for _ in range(frames)])).to(dev)
+    vb = torch.from_numpy(rng.random((frames, m)) > 0.2).to(dev)
+    if shared == "a":
+        a = a[0].contiguous()
+    elif shared == "b":
+        b, vb = b[0].contiguous(), vb[0].contiguous()
+    return a, b, vb
+
+
+@pytest.mark.parametrize("shared", ["b", "a", "none"])
+@pytest.mark.parametrize("splits", [1, 4])
+def test_matcher_kernel_batch_equals_single_launches(dev, shared, splits):
+    """One batched K2 launch of 8 frames (the tracking chunk's shared
+    keyframe, window BA's shared anchor, or both sides batched), at a
+    forced plan of P = 1 and P = 4 column splits: each frame's (top, idx)
+    equals its own single launch word for word (whatever plan that picks),
+    and the plain version within K2's 1e-5 (near ties excepted)."""
+    rng = np.random.default_rng(11)
+    a, b, vb = _batched_operands(rng, dev, 8, 700, 1500, shared)
+    before = k2.launches
+    top, idx = k2.top2(a, b, vb, splits=splits)
+    assert k2.launches == before + 1
+    assert top.shape == (8, 700, 2) and idx.shape == (8, 700)
+    for f in range(8):
+        one = k2.top2(a if shared == "a" else a[f], b if shared == "b" else b[f],
+                      vb if shared == "b" else vb[f])
+        assert torch.equal(top[f].view(torch.int32), one[0].view(torch.int32)), f
+        assert torch.equal(idx[f], one[1]), f
+    rtop, ridx = k2.top2_plain(a, b, vb)
+    _check_top2(top.flatten(0, 1), idx.flatten(0, 1), rtop.flatten(0, 1), ridx.flatten(0, 1))
+
+
+def test_match_batch_equals_single_calls_on_the_card(dev):
+    """`match` with a batched query side against a shared side, with
+    cross-check: one K2 launch each way, every field of frame b equal to
+    the call on frame b alone."""
+    from cusift_tpu_torch import MatchConfig
+    from cusift_tpu_torch.ops.match import match
+
+    rng = np.random.default_rng(12)
+    a, b, _ = _batched_operands(rng, dev, 3, 400, 500, "b")
+    va = torch.from_numpy(rng.random((3, 400)) > 0.1).to(dev)
+    vb = torch.from_numpy(rng.random(500) > 0.1).to(dev)
+    cfg = MatchConfig(ratio_thresh=0.95, cross_check=True)
+    before = k2.launches
+    got = match(a, va, b, vb, cfg)
+    assert k2.launches == before + 2
+    for f in range(3):
+        one = match(a[f], va[f], b, vb, cfg)
+        assert all(torch.equal(x[f], y) for x, y in zip(got, one)), f
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -723,7 +781,7 @@ def test_chunk_rows_equal_frame_steps_on_the_card(dev):
                                slam.ransac_cfg, slam._next_keys(4))
     # one extract_batch over the chunk: K1 once an octave and a use
     assert k1.launches - before[0] == 2 * cfg.num_octaves_for(240, 320)
-    assert k2.launches - before[1] == 4
+    assert k2.launches - before[1] == 1
     slam._key_ctr -= 4
     for i in range(4):
         _, p, row = _frame_step(chunk[i, 0], chunk[i, 1], slam.intr, kd, kv, kp, cfg,
@@ -731,6 +789,69 @@ def test_chunk_rows_equal_frame_steps_on_the_card(dev):
         assert torch.equal(row, rows[i]), (i, (row - rows[i]).abs().max().item())
         assert torch.equal(p, pts[i])
     assert bool((rows[:, 1] == 1).all())
+
+
+def test_stereo_chunk_rows_equal_frame_steps_on_the_card(dev):
+    """A stereo chunk of 3 pairs (240x320) on the card: two K2 launches
+    (the batched left-right match and the batched tracking match), and
+    its rows and points equal 3 sequential `_stereo_frame_step` calls with
+    the same generator seeds, bit for bit."""
+    from cusift_tpu_torch import SlamConfig
+    from cusift_tpu_torch.data.synthetic import two_plane_stereo_sequence
+    from cusift_tpu_torch.models.stereo import StereoSlam, _stereo_chunk_step
+
+    seq = two_plane_stereo_sequence(5, 240, 320, seed=4, motion_scale=0.7, amplitude=2.0)
+    cfg = SiftConfig(max_kpts=384, max_kpts_per_octave=256, num_octaves=3)
+    slam = StereoSlam(seq.intr, seq.baseline, sift_cfg=cfg,
+                      slam_cfg=SlamConfig(max_keyframes=8), device=dev)
+    slam.process_frame(seq.images_l[0], seq.images_r[0])
+    _, kd, kv, kp = slam._ref_cache
+    chunk = torch.from_numpy(np.stack([np.stack([seq.images_l[i], seq.images_r[i]])
+                                       for i in (1, 2, 3)])).to(dev)
+    before = (k1.launches, k2.launches)
+    _, pts, rows = _stereo_chunk_step(chunk, slam.intr, slam.baseline, kd, kv, kp, cfg,
+                                      slam.match_cfg, slam.ransac_cfg, slam._next_keys(3))
+    assert k1.launches - before[0] == 2 * cfg.num_octaves_for(240, 320)
+    assert k2.launches - before[1] == 2
+    slam._key_ctr -= 3
+    for i in range(3):
+        _, p, row = slam._sense_step(chunk[i, 0], chunk[i, 1], kd, kv, kp, slam._next_key())
+        assert torch.equal(row, rows[i]), (i, (row - rows[i]).abs().max().item())
+        assert torch.equal(p, pts[i])
+    assert bool((rows[:, 1] == 1).all())
+
+
+def test_window_association_is_one_launch_on_the_card(dev):
+    """`build_window_problem` on a 5-keyframe window of a 240x320 orbit:
+    one K2 launch for the window (the anchor's descriptors shared), each
+    keyframe's match equal to its own `match` call, and observations
+    kept."""
+    from cusift_tpu_torch.data.synthetic import planar_rgbd_sequence
+    from cusift_tpu_torch.models.local_ba import build_window_problem
+    from cusift_tpu_torch.models.slam import _extract_with_points
+    from cusift_tpu_torch.ops.match import match
+
+    # tests/test_torch_local_ba.py's window: detail adds shared landmarks
+    seq = planar_rgbd_sequence(5, 240, 320, seed=5, motion_scale=0.8, detail=0.3)
+    cfg = SiftConfig(max_kpts=384, max_kpts_per_octave=256, num_octaves=3)
+    intr = torch.from_numpy(seq.intr).to(dev)
+    feats = [_extract_with_points(torch.from_numpy(seq.images[i]).to(dev),
+                                  torch.from_numpy(seq.depths[i]).to(dev), intr, cfg)
+             for i in range(5)]
+    kd = torch.stack([f.desc for f, _, _ in feats])
+    kv = torch.stack([f.valid for f, _, _ in feats])
+    kp = torch.stack([p for _, p, _ in feats])
+    pr = torch.from_numpy(seq.poses_r[:5]).to(dev)
+    pt = torch.from_numpy(seq.poses_t[:5]).to(dev)
+    before = k2.launches
+    prob = build_window_problem(kd, kv, kp, pr, pt, intr, torch.ones(5, device=dev))
+    assert k2.launches == before + 1
+    assert int((prob.w > 0).sum()) > 100
+    valid_j = kv[4] & (kp[4, :, 2] > 1e-6)
+    batch = match(kd[4], valid_j, kd, kv)
+    for k in range(5):
+        one = match(kd[4], valid_j, kd[k], kv[k])
+        assert all(torch.equal(x[k], y) for x, y in zip(batch, one)), k
 
 
 def test_extract_stereo_points_card_matches_cpu(dev):
