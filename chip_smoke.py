@@ -337,20 +337,26 @@ SAMPLE_FLOPS = 40
 POLAR_FLOPS = 30
 
 
-def reset_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    from cusift_tpu_torch.kernels import matcher, octave, sampler, segment
+_counts_at_reset: dict = {}
 
-    sampler.launches = sampler.sep_launches = 0
-    sampler.ori_hist_launches = sampler.desc_raw_launches = 0
-    matcher.launches = octave.launches = segment.launches = 0
+
+def reset_counts() -> None:
+    """Count every kernel wrapper's launches from 0 again (`read_counts`)."""
+    from cusift_tpu_torch.kernels import kernel_counts
+
+    _counts_at_reset.update(kernel_counts())
 
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count since `reset_counts`."""
     from cusift_tpu_torch.kernels import kernel_counts
 
-    return kernel_counts()
+    return {k: v - _counts_at_reset.get(k, 0) for k, v in kernel_counts().items()}
+
+
+def launch_count(wrapper: str) -> int:
+    """One kernel wrapper's launches since `reset_counts` (`kernel_counts`' key)."""
+    return read_counts()[wrapper]
 
 
 def sample_bytes(gauss, lvl, ys, xs) -> int:
@@ -1329,7 +1335,7 @@ def observe(slam) -> dict:
     on_metric and on_event hooks: the host clock at each committed frame,
     each event step's device span (CUDA events around its enqueue) and its
     K1/K2 launches, and each applied event's record."""
-    from cusift_tpu_torch.kernels import matcher, sampler
+    from cusift_tpu_torch.kernels import kernel_counts
 
     st = dict(frame_end=[], events=[], applied=[])
 
@@ -1339,13 +1345,14 @@ def observe(slam) -> dict:
             return
         mark = torch.cuda.Event(enable_timing=True)
         mark.record()
+        n = kernel_counts()
         if stage == "dispatch":
-            st["events"].append(dict(marks=[mark], k1=sampler.launches, k2=matcher.launches))
+            st["events"].append(dict(marks=[mark], k1=n["sampler"], k2=n["matcher"]))
         else:
             e = st["events"][-1]
             e["marks"].append(mark)
-            e["k1"] = sampler.launches - e["k1"]
-            e["k2"] = matcher.launches - e["k2"]
+            e["k1"] = n["sampler"] - e["k1"]
+            e["k2"] = n["matcher"] - e["k2"]
 
     slam.on_metric = lambda rec: st["frame_end"].append(time.perf_counter())
     slam.on_event = on_event
@@ -1381,8 +1388,12 @@ def slam_path(dev) -> tuple[dict, dict, dict]:
     in_event = [False]
     warm.on_event = lambda stage, _: in_event.__setitem__(0, stage == "dispatch")
     reset_counts()
-    with first_calls(sampler, "sample_grad_patches",
-                     lambda *_: sampler.launches if sampler.launches < n_k1 else None) as k1_in, \
+
+    def k1_key(*_):                     # frame 0's K1 calls, by their number
+        n = launch_count("sampler")
+        return n if n < n_k1 else None
+
+    with first_calls(sampler, "sample_grad_patches", k1_key) as k1_in, \
             first_calls(matcher, "top2",
                         lambda *_: "event" if in_event[0] else "tracking") as k2_in:
         warm.run(iter(frames[:WARMUP_FRAMES]))
@@ -1462,16 +1473,15 @@ def count_chunk_fetches(slam) -> dict:
     """Count a chunked run's steps, each step's K2 launches and the commits
     that had to fetch their own row (a device tensor handed to `_commit`),
     through instance attributes that call the class's methods."""
-    from cusift_tpu_torch.kernels import matcher
 
     seen = dict(steps=0, step_k2=[], commit_fetches=0, commits=0)
     step, commit = slam._chunk_sense_step, slam._commit
 
     def chunk_step(*args):
         seen["steps"] += 1
-        k2_0 = matcher.launches
+        k2_0 = launch_count("matcher")
         out = step(*args)
-        seen["step_k2"].append(matcher.launches - k2_0)
+        seen["step_k2"].append(launch_count("matcher") - k2_0)
         return out
 
     def counted_commit(feats, pts, packed, ref, index=None):
@@ -1488,15 +1498,14 @@ def counted_associations():
     """Within the block, the K2 launches of each window BA association
     (`models/local_ba.py:build_window_problem`, which `window_ba` and
     `window_ba_dist` reach), as a list."""
-    from cusift_tpu_torch.kernels import matcher
     from cusift_tpu_torch.models import local_ba
 
     fn, seen = local_ba.build_window_problem, []
 
     def wrapper(*args, **kw):
-        k2_0 = matcher.launches
+        k2_0 = launch_count("matcher")
         out = fn(*args, **kw)
-        seen.append(matcher.launches - k2_0)
+        seen.append(launch_count("matcher") - k2_0)
         return out
 
     local_ba.build_window_problem = wrapper
@@ -1533,10 +1542,10 @@ def chunked_slam_path(dev, chunk1: dict) -> tuple[dict, dict]:
     _, kd, kv, kp = slam._ref_cache
     chunk = torch.from_numpy(np.stack([np.stack(f) for f in frames[1:CHUNK + 1]])).to(dev)
     ctr = slam._key_ctr
-    k2_0 = matcher.launches
+    k2_0 = launch_count("matcher")
     _, _, rows = _chunk_step(chunk, slam.intr, kd, kv, kp, cfg, slam.match_cfg,
                              slam.ransac_cfg, slam._next_keys(CHUNK))
-    chunk_k2 = matcher.launches - k2_0
+    chunk_k2 = launch_count("matcher") - k2_0
     slam._key_ctr = ctr
     seq_rows = torch.stack([
         _frame_step(chunk[i, 0], chunk[i, 1], slam.intr, kd, kv, kp, cfg, slam.match_cfg,
@@ -2010,7 +2019,6 @@ def _vo_timers(vo) -> dict:
     """Host ms of a MonoVO's keyframe events (`_maybe_keyframe` calls that
     inserted one), Sim(3) solves and window BAs, with the events' K1/K2
     launches, by wrapping the instance's methods (the code is unchanged)."""
-    from cusift_tpu_torch.kernels import matcher, sampler
 
     st = dict(event_ms=[], event_k1=0, event_k2=0, sim3_ms=[], ba_ms=[], frame_end=[])
 
@@ -2018,15 +2026,15 @@ def _vo_timers(vo) -> dict:
         fn = getattr(vo, name)
 
         def timed(*a):
-            n0, k1_0, k2_0 = vo.n_kf_total, sampler.launches, matcher.launches
+            n0, k1_0, k2_0 = vo.n_kf_total, launch_count("sampler"), launch_count("matcher")
             t0 = time.perf_counter()
             r = fn(*a)
             ms = (time.perf_counter() - t0) * 1e3
             if key != "event_ms" or vo.n_kf_total > n0:
                 st[key].append(ms)
             if key == "event_ms" and vo.n_kf_total > n0:
-                st["event_k1"] += sampler.launches - k1_0
-                st["event_k2"] += matcher.launches - k2_0
+                st["event_k1"] += launch_count("sampler") - k1_0
+                st["event_k2"] += launch_count("matcher") - k2_0
             return r
         setattr(vo, name, timed)
 
@@ -2056,9 +2064,12 @@ def mono_vo_run(dev, seq, n_frames: int) -> dict:
     t0 = time.perf_counter()
     warm = build()
     reset_counts()
-    with first_calls(sampler, "sample_grad_patches",
-                     lambda *_: sampler.launches if n_k1 <= sampler.launches < 2 * n_k1 else None
-                     ) as k1_in:
+
+    def k1_key(*_):                     # frame 1's K1 calls, by their number
+        n = launch_count("sampler")
+        return n if n_k1 <= n < 2 * n_k1 else None
+
+    with first_calls(sampler, "sample_grad_patches", k1_key) as k1_in:
         warm.run(iter(frames[:VO_WARMUP_FRAMES]))
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0

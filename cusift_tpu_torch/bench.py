@@ -20,10 +20,9 @@ measurement of this card).
 The flags and defaults are bench.py's, plus --device ("cuda" unless asked
 for "cpu"; without a GPU the run stops with an error).  --conv-backend and
 --fused-tile-rows reach `SiftConfig` and steer only the TPU build: they
-change nothing here.  --profile writes a `torch.profiler` trace of the
-timed pair steps into ./trace.  `compile_s` and `batch_compile_s` are the
-first call's seconds, the kernels' nvcc build included when the library is
-not built yet.
+change nothing here.  `compile_s` and `batch_compile_s` are the first
+call's seconds, the kernels' nvcc build included when the library is not
+built yet.
 
 Timing method, bench.py's: queue `iters` calls, wait for the device once
 (`torch.cuda.synchronize()`), then read the counts; the batch is timed in
@@ -33,9 +32,7 @@ two passes and the best is kept.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import os
 import sys
 import time
 
@@ -104,8 +101,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the TPU's row tile for pallas_hbm (no effect here)")
     ap.add_argument("--desc-slot-factor", type=float, default=1.25,
                     help="descriptor slots per candidate budget (config.py desc_slot_factor)")
-    ap.add_argument("--profile", action="store_true",
-                    help="capture a torch.profiler trace of the timed pair steps into ./trace")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the pipeline runs (default: the GPU)")
     args = ap.parse_args(argv)
@@ -158,17 +153,7 @@ def main(argv=None) -> dict:
     for _ in range(args.warmup):
         int(step(da, db)[0])
 
-    prof = contextlib.nullcontext()
-    if args.profile:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-    with prof:
-        pair_s = timed_queue(step, da, db, iters=args.iters)
-    if args.profile:
-        os.makedirs("trace", exist_ok=True)
-        prof.export_chrome_trace(os.path.join("trace", "bench_pair.json"))
+    pair_s = timed_queue(step, da, db, iters=args.iters)
 
     result = {
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",

@@ -1,14 +1,16 @@
 """The port's CUDA kernels: wrappers (`sampler.py`, `matcher.py`,
-`octave.py`, `segment.py`), each counting the launches it makes, and their
+`octave.py`, `segment.py`), each counting the launches it makes in the
+program's counters (`utils/trace.py`, as `kernel.<wrapper>`), and their
 build (`_build.py`)."""
+
+# kernel_counts' keys: K1 sampler, K2 matcher, K3 octave, K4-K6, the segment sums
+_KERNELS = ("sampler", "matcher", "octave", "ori_hist", "desc_raw", "sep", "segment")
 
 
 def kernel_counts() -> dict:
     """This process's kernel launches, by wrapper (K1: sampler, K2:
     matcher, K3: octave, K4-K6, and the solvers' segment sums)."""
-    from . import matcher, octave, sampler, segment
+    from ..utils.trace import counters
 
-    return {"sampler": sampler.launches, "matcher": matcher.launches,
-            "octave": octave.launches, "ori_hist": sampler.ori_hist_launches,
-            "desc_raw": sampler.desc_raw_launches, "sep": sampler.sep_launches,
-            "segment": segment.launches}
+    c = counters()
+    return {k: c.get(f"kernel.{k}", 0) for k in _KERNELS}

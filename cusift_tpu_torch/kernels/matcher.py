@@ -33,9 +33,9 @@ import functools
 
 import torch
 
+from ..utils import trace
 from . import _build
 
-launches = 0   # calls of `top2` that launched the kernel (both passes)
 
 BLOCK_ROWS = 128   # query rows per block (csrc/matcher.cu BM)
 BLOCK_COLS = 64    # B rows per streamed tile (csrc/matcher.cu BN)
@@ -114,7 +114,6 @@ def top2(desc_a: torch.Tensor, desc_b: torch.Tensor, valid_b: torch.Tensor,
     launch for the batch.  `splits` forces the plan's column splits
     (tests).
     """
-    global launches
     if desc_a.device.type == "cpu":
         return top2_plain(desc_a, desc_b, valid_b)
     if desc_a.device.type != "cuda":
@@ -160,5 +159,5 @@ def top2(desc_a: torch.Tensor, desc_b: torch.Tensor, valid_b: torch.Tensor,
             None if part_idx is None else part_idx.data_ptr(),
             nb, n, m, d, *strides, p, plan["cols_per_split"], stream)
     _build.check(err, "cusift_match_top2")
-    launches += 1
+    trace.count("kernel.matcher")
     return top, idx

@@ -34,9 +34,9 @@ import torch.nn.functional as F
 from ..config import SiftConfig
 from ..ops.detect import extrema_score
 from ..ops.gaussian import blur, gaussian_taps
+from ..utils import trace
 from . import _build
 
-launches = 0   # kernel launches made by `fused_octave`
 
 MAX_LEVELS = 8    # blurred levels S + 2 (csrc/octave.cu kMaxLevels)
 MAX_RADIUS = 32   # largest tap radius (csrc/octave.cu kMaxRadius)
@@ -126,7 +126,6 @@ def fused_octave(base: torch.Tensor, cfg: SiftConfig):
     0.5 * cT / S, -inf elsewhere.  All float32, whatever `score_dtype` says,
     as in the reference's fused path.
     """
-    global launches
     if base.device.type == "cpu":
         return fused_octave_plain(base, cfg)
     if base.device.type != "cuda":
@@ -163,7 +162,7 @@ def fused_octave(base: torch.Tensor, cfg: SiftConfig):
             plan["band_rows"], plan["window_rows"], plan["vbuf_stride"],
             plan["smem_bytes"], prefilter, stream)
     _build.check(err, "cusift_fused_octave")
-    launches += 1
+    trace.count("kernel.octave")
     if base.ndim == 2:
         return samp[0], dog[0], score[0]
     return samp, dog, score

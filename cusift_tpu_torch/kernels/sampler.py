@@ -47,14 +47,9 @@ import math
 import torch
 
 from ..ops.gaussian import image_gradients
+from ..utils import trace
 from . import _build
 from .matcher import _sm_count
-
-# kernel launches made by each wrapper
-launches = 0               # K1 sample_grad_patches
-sep_launches = 0           # K6 sample_grad_patches_sep
-ori_hist_launches = 0      # K4 sample_ori_hist
-desc_raw_launches = 0      # K5 sample_desc_raw
 
 
 def _planes(lvl: torch.Tensor, nlev: int) -> torch.Tensor:
@@ -218,7 +213,6 @@ def sample_grad_patches(gauss: torch.Tensor, lvl: torch.Tensor,
     bool).  A [L, H, W] stack with [N], [N, S] inputs is the B = 1 case
     and gives [N, S] outputs.
     """
-    global launches
     if _plain_or_cuda("sample_grad_patches", gauss):
         return sample_grad_patches_plain(gauss, lvl, ys, xs)
     f32 = torch.float32
@@ -237,7 +231,7 @@ def sample_grad_patches(gauss: torch.Tensor, lvl: torch.Tensor,
         return unbatch(dx, dy, inb)
     _launch("cusift_sample_grad_patches", gauss,
             *_ptrs(gauss, lvl, ys, xs, dx, dy, inb), l, h, w, b, n, s)
-    launches += 1
+    trace.count("kernel.sampler")
     return unbatch(dx, dy, inb)
 
 
@@ -250,7 +244,6 @@ def sample_grad_patches_sep(gauss: torch.Tensor, lvl: torch.Tensor,
     order; inb is row-in & col-in.  [L, H, W] with [N, ...] inputs is the
     B = 1 case.
     """
-    global sep_launches
     if _plain_or_cuda("sample_grad_patches_sep", gauss):
         return sample_grad_patches_sep_plain(gauss, lvl, ys_rows, xs_cols)
     f32 = torch.float32
@@ -276,7 +269,7 @@ def sample_grad_patches_sep(gauss: torch.Tensor, lvl: torch.Tensor,
         return unbatch(dx, dy, inb)
     _launch("cusift_sample_grad_patches_sep", gauss,
             *_ptrs(gauss, lvl, ys_rows, xs_cols, dx, dy, inb), l, h, w, b, n, gr, gc)
-    sep_launches += 1
+    trace.count("kernel.sep")
     return unbatch(dx, dy, inb)
 
 
@@ -353,7 +346,6 @@ def sample_ori_hist(gauss: torch.Tensor, lvl: torch.Tensor, ys: torch.Tensor,
     outside the image weighs nothing.  Smoothing stays outside.  [L, H, W]
     with [N, ...] inputs is the B = 1 case.
     """
-    global ori_hist_launches
     if _plain_or_cuda("sample_ori_hist", gauss):
         return sample_ori_hist_plain(gauss, lvl, ys, xs, wv, nb)
     gauss, (lvl, ys, xs, wv), unbatch = _frames(gauss, lvl, ys, xs, wv)
@@ -365,7 +357,7 @@ def sample_ori_hist(gauss: torch.Tensor, lvl: torch.Tensor, ys: torch.Tensor,
     plan = _launch_plan(b * n, s, None, _sm_count(gauss.device.index))
     _launch("cusift_sample_ori_hist", gauss, *_ptrs(gauss, lvl, ys, xs, wv, hist),
             l, h, w, b, n, s, nb, *_plan_args(plan))
-    ori_hist_launches += 1
+    trace.count("kernel.ori_hist")
     return unbatch(hist)[0]
 
 
@@ -380,7 +372,6 @@ def sample_desc_raw(gauss: torch.Tensor, lvl: torch.Tensor, ys: torch.Tensor,
     Normalisation stays outside.  [L, H, W] with [N, ...] inputs is the
     B = 1 case.
     """
-    global desc_raw_launches
     if _plain_or_cuda("sample_desc_raw", gauss):
         return sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, w_spatial, nb)
     gauss, (lvl, ys, xs, theta, wv), unbatch = _frames(gauss, lvl, ys, xs, theta, wv)
@@ -400,5 +391,5 @@ def sample_desc_raw(gauss: torch.Tensor, lvl: torch.Tensor, ys: torch.Tensor,
     _launch("cusift_sample_desc_raw", gauss,
             *_ptrs(gauss, lvl, ys, xs, theta, wv, w_spatial, raw),
             l, h, w, b, n, s, nb, cells, *_plan_args(plan))
-    desc_raw_launches += 1
+    trace.count("kernel.desc_raw")
     return unbatch(raw)[0]

@@ -28,9 +28,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
 from . import _build
 
-launches = 0   # calls of `segment_sum` that launched the kernel
 
 TILE = 128          # sorted rows in which a block's segments start
 THREADS = 256       # threads a block
@@ -131,7 +131,6 @@ def segment_sum_plain(x: torch.Tensor, p: Plan) -> torch.Tensor:
 def segment_sum(x: torch.Tensor, p: Plan) -> torch.Tensor:
     """out [n, ...] with out[s] = sum of x[r] over rows r of segment s, in
     ascending r.  x [R, ...] float32 or float64."""
-    global launches
     if x.device.type == "cpu":
         return segment_sum_plain(x, p)
     if x.device.type != "cuda":
@@ -164,5 +163,5 @@ def segment_sum(x: torch.Tensor, p: Plan) -> torch.Tensor:
             p.blocks.shape[0] - 1, p.tile, shape["d_tile"], shape["chunk"],
             shape["threads"], shape["smem"], int(x.dtype == torch.float64), stream)
     _build.check(err, "cusift_segment_sum")
-    launches += 1
+    trace.count("kernel.segment")
     return out

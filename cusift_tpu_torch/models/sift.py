@@ -29,6 +29,7 @@ from ..ops.gaussian import downsample2
 from ..ops.keypoints import take, top_indices
 from ..ops.orientation import dominant_orientations, orientation_histograms
 from ..ops.pyramid import initial_level, octave_levels
+from ..utils import trace
 from ..utils.device import as_input
 from ..utils.precision import pin_f32
 
@@ -81,6 +82,7 @@ def _topk(feats: SiftFeatures, n: int) -> SiftFeatures:
     return out._replace(valid=valid)
 
 
+@trace.traced("sift.pyramid")
 def _octave_planes(img: torch.Tensor, cfg: SiftConfig):
     """Per octave: (sample_levels [..., S, H, W], dog [..., S+2, H, W],
     score [..., S, H, W]) of a [H, W] image or a [B, H, W] batch."""
@@ -114,15 +116,19 @@ def _features(planes, cfg: SiftConfig) -> SiftFeatures:
     that frame alone."""
     parts = []
     for oi, (samp, dog, score) in enumerate(planes):
-        kps = detect_from_score(dog, score, oi, cfg)
-        # keypoints live on DoG levels 1..S, the sampler-level stack
-        hist = orientation_histograms(samp, kps, cfg, level_base=1)
-        theta, ok = dominant_orientations(hist, cfg)
-        slots = compact_slots(kps, theta, ok, cfg.desc_slots(oi))
-        desc, slot_valid = descriptors(samp, slots, cfg, level_base=1)
+        with trace.span("sift.detect", id=oi):
+            kps = detect_from_score(dog, score, oi, cfg)
+        with trace.span("sift.orientation", id=oi):
+            # keypoints live on DoG levels 1..S, the sampler-level stack
+            hist = orientation_histograms(samp, kps, cfg, level_base=1)
+            theta, ok = dominant_orientations(hist, cfg)
+        with trace.span("sift.describe", id=oi):
+            slots = compact_slots(kps, theta, ok, cfg.desc_slots(oi))
+            desc, slot_valid = descriptors(samp, slots, cfg, level_base=1)
         parts.append(_features_from(slots, desc, slot_valid))
-    feats = SiftFeatures(*(torch.cat(xs, 1) for xs in zip(*parts)))
-    return _topk(feats, cfg.total_kpts)
+    with trace.span("sift.topk"):
+        feats = SiftFeatures(*(torch.cat(xs, 1) for xs in zip(*parts)))
+        return _topk(feats, cfg.total_kpts)
 
 
 def extract(img, cfg: SiftConfig = SiftConfig(), *, device=None) -> SiftFeatures:
@@ -138,8 +144,10 @@ def extract(img, cfg: SiftConfig = SiftConfig(), *, device=None) -> SiftFeatures
     img = as_input(img, device)
     if img.ndim != 2:
         raise ValueError(f"extract takes one [H, W] image, got {tuple(img.shape)}")
-    feats = _features(_octave_planes(img[None], cfg), cfg)
-    return SiftFeatures(*(a[0] for a in feats))
+    with trace.span("sift.extract", frames=1):
+        trace.count("sift.frames")
+        feats = _features(_octave_planes(img[None], cfg), cfg)
+        return SiftFeatures(*(a[0] for a in feats))
 
 
 def extract_batch(imgs, cfg: SiftConfig = SiftConfig(), *,
@@ -158,4 +166,6 @@ def extract_batch(imgs, cfg: SiftConfig = SiftConfig(), *,
     imgs = as_input(imgs, device)
     if imgs.ndim != 3:
         raise ValueError(f"extract_batch takes a [B, H, W] batch, got {tuple(imgs.shape)}")
-    return _features(_octave_planes(imgs, cfg), cfg)
+    with trace.span("sift.extract", frames=imgs.shape[0]):
+        trace.count("sift.frames", imgs.shape[0])
+        return _features(_octave_planes(imgs, cfg), cfg)

@@ -63,6 +63,7 @@ from ..ops.match import match
 from ..ops.ransac import find_rigid, step_generators
 from ..optim.lie import inverse, se3_log
 from ..optim.posegraph import PoseGraph, optimize as pg_optimize
+from ..utils import trace
 from ..utils.device import as_input, run_device
 from ..utils.pipeline import device_chunks, device_frames
 from ..utils.precision import f32_matmuls
@@ -81,6 +82,13 @@ def _f32(*xs) -> torch.Tensor:
     tensor's device; [B] tensors give [B, len(xs)]."""
     dev = next(x.device for x in xs if isinstance(x, torch.Tensor))
     return torch.stack([torch.as_tensor(x, device=dev).to(torch.float32) for x in xs], -1)
+
+
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """A step's packed result on the host: the blocking copy the host waits
+    on for the device."""
+    with trace.span("fetch"):
+        return t.cpu().numpy()
 
 
 def _frame_of(feats: SiftFeatures, i: int) -> SiftFeatures:
@@ -299,6 +307,7 @@ class Slam:
     caller asks for "cpu"); numpy frames are copied there.
     """
 
+    @trace.traced("slam.init")
     def __init__(self, intr, sift_cfg=SiftConfig(), match_cfg=MatchConfig(),
                  ransac_cfg=RansacConfig(), slam_cfg=SlamConfig(),
                  pg_cfg=PoseGraphConfig(), seed: int = 0,
@@ -514,6 +523,7 @@ class Slam:
         return _chunk_step(fchunk, self.intr, kd, kv, kp, self.sift_cfg,
                            self.match_cfg, self.ransac_cfg, keys)
 
+    @trace.traced("slam.bootstrap")
     def _bootstrap(self, img, depth) -> dict:
         s = self.state
         feats, pts = self._sense(img, depth)
@@ -526,6 +536,7 @@ class Slam:
         rec = {"frame": 0, "kpts": int(feats.count), "matches": 0,
                "inliers": 0, "keyframe": True, "loop": False}
         self.metrics.append(rec)
+        trace.count("slam.frames")
         if self.on_metric:
             self.on_metric(rec)
         return rec
@@ -537,6 +548,7 @@ class Slam:
         feats, pts, packed = self._sense_step(img, depth, kd, kv, kp, self._next_key())
         return feats, pts, packed, ref
 
+    @trace.traced("slam.commit")
     def _commit(self, feats, pts, packed, ref, index=None) -> dict:
         """Fetch one step's packed scalars and apply the SLAM decisions.
 
@@ -547,7 +559,7 @@ class Slam:
         """
         s = self.state
         if isinstance(packed, torch.Tensor):
-            packed = packed.cpu().numpy()                # the one fetch
+            packed = _fetch(packed)                      # the one fetch
         inl = int(packed[0])
         n_kpts = int(packed[2])
         n_matches = int(packed[3])
@@ -655,6 +667,7 @@ class Slam:
             # this frame's own deferred event: patch rec["loop"] at drain
             self._pending_event[2] = rec
         self.metrics.append(rec)
+        trace.count("slam.frames")
         if self.on_metric:
             self.on_metric(rec)
         if (added_kf and self.cfg.checkpoint_every
@@ -700,17 +713,18 @@ class Slam:
             if max_frames is not None:
                 max_frames -= 1
         done = 0
-        for fchunk, n_valid in device_chunks(it, chunk, self.device):
+        for c, (fchunk, n_valid) in enumerate(device_chunks(it, chunk, self.device)):
             if max_frames is not None:
                 n_valid = min(n_valid, max_frames - done)
                 if n_valid <= 0:
                     break
             ref, kd, kv, kp = self._ref_cache
-            # the keys of the padded frames are consumed too, as the
-            # reference's are: a checkpoint's counter keeps its meaning
-            feats, pts, packed = self._chunk_sense_step(fchunk, kd, kv, kp,
-                                                        self._next_keys(chunk))
-            rows = packed.cpu().numpy()                  # the one fetch
+            with trace.span("slam.chunk_step", frames=n_valid, id=c):
+                # the keys of the padded frames are consumed too, as the
+                # reference's are: a checkpoint's counter keeps its meaning
+                feats, pts, packed = self._chunk_sense_step(fchunk, kd, kv, kp,
+                                                            self._next_keys(chunk))
+                rows = _fetch(packed)                    # the one fetch
             # every frame of the chunk was measured against `ref`, whose
             # slot must stay resolvable while its frames commit: eviction
             # pins this holder and shifts it
@@ -735,9 +749,9 @@ class Slam:
         if limit <= 0:
             return None
         s = self.state
-        packed = _retrieve_verify_step(
+        packed = _fetch(_retrieve_verify_step(
             desc, valid, pts, s.kf_desc, s.kf_valid, s.kf_pts, limit, exclude,
-            self.match_cfg, self.ransac_cfg, self._next_key()).cpu().numpy()
+            self.match_cfg, self.ransac_cfg, self._next_key()))
         cand, score, ok, inl = (int(packed[0]), float(packed[1]),
                                 bool(packed[2]), int(packed[3]))
         if (not ok or not np.isfinite(score) or score < self.cfg.loop_min_score
@@ -796,10 +810,12 @@ class Slam:
         limit = max(0, s.n_kf - 1 - self.cfg.loop_temporal_gap)
         if self.on_event:
             self.on_event("dispatch", j)
-        dev = _kf_event_step(
-            s.kf_desc, s.kf_valid, s.kf_pts, self.intr, blob, self._next_key(),
-            j, s.n_kf, limit, w, self.match_cfg, self.ransac_cfg, self._ba_cfg,
-            self.cfg.loop_min_score, self.cfg.loop_min_inliers)
+        trace.count("slam.events")
+        with trace.span("slam.event.dispatch", id=j):
+            dev = _kf_event_step(
+                s.kf_desc, s.kf_valid, s.kf_pts, self.intr, blob, self._next_key(),
+                j, s.n_kf, limit, w, self.match_cfg, self.ransac_cfg, self._ba_cfg,
+                self.cfg.loop_min_score, self.cfg.loop_min_inliers)
         if self.on_event:
             self.on_event("enqueued", j)
         if self.cfg.defer_events and self._defer_ok:
@@ -809,12 +825,13 @@ class Slam:
             return False
         return self._apply_event(j, dev, lo, w)
 
+    @trace.traced("slam.event.apply")
     def _apply_event(self, j: int, dev, lo: int, w: int) -> bool:
         """Fetch one event's packed result and apply it to host state; an
         accepted closure appends its edge and runs the dense graph solve."""
         s = self.state
         t0 = time.perf_counter()
-        packed = dev.cpu().numpy()                        # the one fetch
+        packed = _fetch(dev)                              # the one fetch
         s.kf_pose_r[lo:lo + w] = packed[:w * 9].reshape(w, 3, 3)
         s.kf_pose_t[lo:lo + w] = packed[w * 9:w * 12].reshape(w, 3)
         o = w * 12
@@ -861,11 +878,12 @@ class Slam:
             # static landmark sharding needs the [W, N] grid layout
             r, t, c0, c1 = window_ba(*args, self.match_cfg, self._ba_cfg,
                                      anchor=self.cfg.local_ba_anchor)
-        packed = torch.cat([r.reshape(-1), t.reshape(-1), torch.stack([c0, c1])]
-                           ).cpu().numpy()                 # the one fetch
+        packed = _fetch(torch.cat([r.reshape(-1), t.reshape(-1),
+                                   torch.stack([c0, c1])]))  # the one fetch
         s.kf_pose_r[win] = packed[:w * 9].reshape(w, 3, 3)
         s.kf_pose_t[win] = packed[w * 9:w * 12].reshape(w, 3)
 
+    @trace.traced("slam.graph_solve")
     def _optimize_graph(self, cfg: PoseGraphConfig | None = None):
         """Pose-graph solve over the live ring slots (`self.pg_cfg` unless
         given): edges padded with weight-0 identities to a multiple of 64,
@@ -900,8 +918,8 @@ class Slam:
                       meas_r=mr.reshape(cap, 3, 3), meas_t=mt.reshape(cap, 3),
                       weight=wt)
         res = pg_optimize(g, cfg or self.pg_cfg)
-        packed = torch.cat([res.poses_r.reshape(-1), res.poses_t.reshape(-1)]
-                           ).cpu().numpy()                 # the one fetch
+        packed = _fetch(torch.cat([res.poses_r.reshape(-1),
+                                   res.poses_t.reshape(-1)]))  # the one fetch
         s.kf_pose_r[:n_kf] = packed[:n_kf * 9].reshape(n_kf, 3, 3)
         s.kf_pose_t[:n_kf] = packed[n_kf * 9:].reshape(n_kf, 3)
 

@@ -15,6 +15,7 @@ from ..config import MatchConfig, RansacConfig, SiftConfig
 from ..ops.match import Matches, match
 from ..ops.geometry import backproject
 from ..ops.ransac import HomographyResult, RigidResult, find_homography, find_rigid
+from ..utils import trace
 from ..utils.device import as_input
 from ..utils.precision import f32_matmuls
 from .sift import SiftFeatures, extract
@@ -56,6 +57,7 @@ def mask_to_content(f: SiftFeatures, content, border: int) -> SiftFeatures:
     return f._replace(valid=valid)
 
 
+@trace.traced("twoview.match_pair")
 def match_pair(img_a, img_b,
                sift_cfg: SiftConfig = SiftConfig(),
                match_cfg: MatchConfig = MatchConfig(),

@@ -19,6 +19,7 @@ import torch
 
 from ..config import MatchConfig
 from ..kernels import matcher as k2
+from ..utils import trace
 from ..utils.precision import pin_f32
 
 
@@ -42,6 +43,13 @@ def match(desc_a: torch.Tensor, valid_a: torch.Tensor,
     matched against every frame of the other.  Row i of frame b equals
     the call on frame b alone, bit for bit.
     """
+    frames = (desc_a.shape[0] if desc_a.ndim == 3 else desc_b.shape[0] if desc_b.ndim == 3
+              else 1)
+    with trace.span("match", frames=frames):
+        return _match(desc_a, valid_a, desc_b, valid_b, cfg)
+
+
+def _match(desc_a, valid_a, desc_b, valid_b, cfg: MatchConfig) -> Matches:
     pin_f32()
     if cfg.backend in ("auto", "pallas"):
         top2 = k2.top2

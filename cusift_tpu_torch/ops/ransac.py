@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RansacConfig
+from ..utils import trace
 from ..utils.precision import f32_matmuls, pin_f32
 from .geometry import apply_homography, procrustes, solve_homography
 
@@ -85,6 +86,12 @@ def find_homography(pa: torch.Tensor, pb: torch.Tensor, valid: torch.Tensor,
                     cfg: RansacConfig = RansacConfig(),
                     generator: torch.Generator | None = None) -> HomographyResult:
     """RANSAC homography pa -> pb over [N, 2] correspondences + mask."""
+    with trace.span("ransac.homography", frames=1):
+        trace.count("ransac.frames")
+        return _find_homography(pa, pb, valid, cfg, generator)
+
+
+def _find_homography(pa, pb, valid, cfg: RansacConfig, generator) -> HomographyResult:
     pin_f32()
     if generator is None:
         generator = torch.Generator(device=pa.device).manual_seed(cfg.seed)
@@ -141,6 +148,13 @@ def find_rigid(pa: torch.Tensor, pb: torch.Tensor, valid: torch.Tensor,
     draws from generator b, as the frame alone would); the result carries
     the B axis.
     """
+    frames = pa.shape[0] if pa.ndim == 3 else 1
+    with trace.span("ransac.rigid", frames=frames):
+        trace.count("ransac.frames", frames)
+        return _find_rigid(pa, pb, valid, cfg, generator)
+
+
+def _find_rigid(pa, pb, valid, cfg: RansacConfig, generator) -> RigidResult:
     batched = pa.ndim == 3
     if not batched:
         pa, pb, valid = pa[None], pb[None], valid[None]

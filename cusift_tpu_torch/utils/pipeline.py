@@ -8,6 +8,10 @@ device works on frame i (a bounded queue of depth 2: double buffering).
 On a CUDA device the packed array is staged in pinned host memory and
 copied with `non_blocking=True` on a side stream; the consumer makes its
 own stream wait for that copy before it reads it.
+
+The feeder's work runs inside the spans `feed.pack` (reading and packing
+an item), `feed.pin` and `feed.copy`, and the consumer's wait for it inside
+`feed.wait` (`utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+from . import trace
 
 
 def pack_frame(img: np.ndarray, depth: np.ndarray | None) -> np.ndarray:
@@ -67,7 +73,8 @@ def _prefetched(produce, prefetch: int) -> Iterator:
     threading.Thread(target=worker, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with trace.span("feed.wait"):
+                item = q.get()
             if isinstance(item, tuple) and len(item) == 2 and item[0] is stop:
                 if item[1] is not None:
                     raise item[1]
@@ -75,6 +82,17 @@ def _prefetched(produce, prefetch: int) -> Iterator:
             yield item
     finally:
         cancelled.set()
+
+
+def _packed(items: Iterable) -> Iterator:
+    """`items`, each built (read and packed) inside a `feed.pack` span."""
+    it = iter(items)
+    while True:
+        with trace.span("feed.pack"):
+            item = next(it, None)
+        if item is None:
+            return
+        yield item
 
 
 def _uploaded(items: Iterable, device, prefetch: int) -> Iterator:
@@ -88,8 +106,10 @@ def _uploaded(items: Iterable, device, prefetch: int) -> Iterator:
     device = torch.device(device)
     if device.type != "cuda":
         def produce(emit):
-            for host, tag in items:
-                emit((torch.from_numpy(host).to(device), tag))
+            for host, tag in _packed(items):
+                with trace.span("feed.copy"):
+                    dev = torch.from_numpy(host).to(device)
+                emit((dev, tag))
         yield from _prefetched(produce, prefetch)
         return
 
@@ -97,11 +117,13 @@ def _uploaded(items: Iterable, device, prefetch: int) -> Iterator:
 
     def produce_cuda(emit):
         with torch.cuda.stream(copy_stream):
-            for host, tag in items:
-                pinned = torch.from_numpy(host).pin_memory()
-                dev = pinned.to(device, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(copy_stream)
+            for host, tag in _packed(items):
+                with trace.span("feed.pin"):
+                    pinned = torch.from_numpy(host).pin_memory()
+                with trace.span("feed.copy"):
+                    dev = pinned.to(device, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(copy_stream)
                 # `pinned` rides along: the buffer must outlive the copy
                 emit((dev, tag, done, pinned))
 

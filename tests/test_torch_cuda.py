@@ -44,12 +44,18 @@ import pytest
 import torch
 
 from cusift_tpu_torch import SiftConfig
+from cusift_tpu_torch.kernels import kernel_counts
 from cusift_tpu_torch.kernels import matcher as k2
 from cusift_tpu_torch.kernels import octave as k3
 from cusift_tpu_torch.kernels import sampler as k1
 from cusift_tpu_torch.ops.gaussian import blur
 
 pytestmark = pytest.mark.cuda
+
+
+def launches(kernel: str) -> int:
+    """This process's launches of one kernel wrapper so far."""
+    return kernel_counts()[kernel]
 
 
 @pytest.fixture
@@ -73,9 +79,9 @@ def test_sampler_kernel_matches_plain(dev, shape):
     lvl = torch.from_numpy(rng.integers(-1, L + 1, N).astype(np.int32)).to(dev)
     ys = torch.from_numpy(rng.uniform(-3, H + 2, (N, S)).astype(np.float32)).to(dev)
     xs = torch.from_numpy(rng.uniform(-3, W + 2, (N, S)).astype(np.float32)).to(dev)
-    before = k1.launches
+    before = launches("sampler")
     dx, dy, inb = k1.sample_grad_patches(gauss, lvl, ys, xs)
-    assert k1.launches == before + 1
+    assert launches("sampler") == before + 1
     rdx, rdy, rinb = k1.sample_grad_patches_plain(gauss, lvl, ys, xs)
     torch.cuda.synchronize()
     assert torch.equal(inb, rinb)
@@ -124,9 +130,9 @@ def test_sampler_kernel_cases(dev, case):
     a block's threads; reruns are bit-identical."""
     rng = np.random.default_rng(15)
     gauss, lvl, ys, xs = _k1_case(case, rng, dev)
-    before = k1.launches
+    before = launches("sampler")
     out = k1.sample_grad_patches(gauss, lvl, ys, xs)
-    assert k1.launches == before + 1
+    assert launches("sampler") == before + 1
     rdx, rdy, rinb = k1.sample_grad_patches_plain(gauss, lvl, ys, xs)
     torch.cuda.synchronize()
     assert torch.equal(out[2], rinb)
@@ -143,9 +149,9 @@ def test_matcher_kernel_matches_plain(dev, n, m, d):
     a = torch.from_numpy(_unit(rng, n, d)).to(dev)
     b = torch.from_numpy(_unit(rng, m, d)).to(dev)
     vb = torch.from_numpy(rng.random(m) > 0.2).to(dev)
-    before = k2.launches
+    before = launches("matcher")
     top, idx = k2.top2(a, b, vb)
-    assert k2.launches == before + 1
+    assert launches("matcher") == before + 1
     rtop, ridx = k2.top2_plain(a, b, vb)
     torch.cuda.synchronize()
     fin = torch.isfinite(rtop)
@@ -191,9 +197,9 @@ def test_matcher_kernel_split_plans(dev, n, m, d):
     a = torch.from_numpy(_unit(rng, n, d)).to(dev)
     b = torch.from_numpy(_unit(rng, m, d)).to(dev)
     vb = torch.from_numpy(rng.random(m) > 0.2).to(dev)
-    before = k2.launches
+    before = launches("matcher")
     top, idx = k2.top2(a, b, vb)
-    assert k2.launches == before + 1
+    assert launches("matcher") == before + 1
     _check_top2(top, idx, *k2.top2_plain(a, b, vb))
     top2, idx2 = k2.top2(a, b, vb)
     assert torch.equal(top, top2) and torch.equal(idx, idx2)
@@ -245,9 +251,9 @@ def test_matcher_kernel_batch_equals_single_launches(dev, shared, splits):
     and the plain version within K2's 1e-5 (near ties excepted)."""
     rng = np.random.default_rng(11)
     a, b, vb = _batched_operands(rng, dev, 8, 700, 1500, shared)
-    before = k2.launches
+    before = launches("matcher")
     top, idx = k2.top2(a, b, vb, splits=splits)
-    assert k2.launches == before + 1
+    assert launches("matcher") == before + 1
     assert top.shape == (8, 700, 2) and idx.shape == (8, 700)
     for f in range(8):
         one = k2.top2(a if shared == "a" else a[f], b if shared == "b" else b[f],
@@ -270,9 +276,9 @@ def test_match_batch_equals_single_calls_on_the_card(dev):
     va = torch.from_numpy(rng.random((3, 400)) > 0.1).to(dev)
     vb = torch.from_numpy(rng.random(500) > 0.1).to(dev)
     cfg = MatchConfig(ratio_thresh=0.95, cross_check=True)
-    before = k2.launches
+    before = launches("matcher")
     got = match(a, va, b, vb, cfg)
-    assert k2.launches == before + 2
+    assert launches("matcher") == before + 2
     for f in range(3):
         one = match(a[f], va[f], b, vb, cfg)
         assert all(torch.equal(x[f], y) for x, y in zip(got, one)), f
@@ -320,9 +326,9 @@ def test_octave_kernel_matches_plain(dev, shape):
     cfg = SiftConfig()
     base = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
     base = blur(base, 1.2)                  # image-like smoothness
-    before = k3.launches
+    before = launches("octave")
     got = k3.fused_octave(base, cfg)
-    assert k3.launches == before + 1
+    assert launches("octave") == before + 1
     ref = k3.fused_octave_plain(base, cfg)
     torch.cuda.synchronize()
     for a, b in zip(got[:2], ref[:2]):
@@ -342,9 +348,9 @@ def test_ori_hist_kernel_matches_plain(dev, n, s):
     rng = np.random.default_rng(5)
     gauss, lvl, ys, xs = _points(rng, dev, 3, 240, 320, n, s, 20.0)
     wv = torch.from_numpy(rng.uniform(0, 1, (n, s)).astype(np.float32)).to(dev)
-    before = k1.ori_hist_launches
+    before = launches("ori_hist")
     hist = k1.sample_ori_hist(gauss, lvl, ys, xs, wv, 36)
-    assert k1.ori_hist_launches == before + 1
+    assert launches("ori_hist") == before + 1
     ref = k1.sample_ori_hist_plain(gauss, lvl, ys, xs, wv, 36)
     torch.cuda.synchronize()
     _close_rel(hist, ref, 1e-4)
@@ -358,9 +364,9 @@ def test_desc_raw_kernel_matches_plain(dev, n, s):
     wv = torch.from_numpy(rng.uniform(0, 1, (n, s)).astype(np.float32)).to(dev)
     theta = torch.from_numpy(rng.uniform(0, 2 * np.pi, n).astype(np.float32)).to(dev)
     wsp = torch.from_numpy(rng.uniform(0, 1, (s, 16)).astype(np.float32)).to(dev)
-    before = k1.desc_raw_launches
+    before = launches("desc_raw")
     raw = k1.sample_desc_raw(gauss, lvl, ys, xs, theta, wv, wsp, 8)
-    assert k1.desc_raw_launches == before + 1 and raw.shape == (n, 8, 16)
+    assert launches("desc_raw") == before + 1 and raw.shape == (n, 8, 16)
     ref = k1.sample_desc_raw_plain(gauss, lvl, ys, xs, theta, wv, wsp, 8)
     torch.cuda.synchronize()
     _close_rel(raw, ref, 1e-4)
@@ -559,9 +565,9 @@ def test_sep_sampler_kernel_matches_plain(dev, case):
     rng = np.random.default_rng(7)
     gauss, lvl, ys_rows, xs_cols = _sep_case(case, rng, dev)
     n, gr, gc = ys_rows.shape + xs_cols.shape[1:]
-    before = k1.sep_launches
+    before = launches("sep")
     out = k1.sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols)
-    assert k1.sep_launches == before + 1 and out[0].shape == (n, gr * gc)
+    assert launches("sep") == before + 1 and out[0].shape == (n, gr * gc)
     rdx, rdy, rinb = k1.sample_grad_patches_sep_plain(gauss, lvl, ys_rows, xs_cols)
     torch.cuda.synchronize()
     assert torch.equal(out[2], rinb)
@@ -609,19 +615,19 @@ def test_batched_kernels_match_plain_and_frames(dev, which):
         ys, xs = ys[..., :12].contiguous(), xs[..., :12].contiguous()
     run, plain, count = {
         "k1": (lambda *t: k1.sample_grad_patches(*t[:4]),
-               lambda *t: k1.sample_grad_patches_plain(*t[:4]), "launches"),
+               lambda *t: k1.sample_grad_patches_plain(*t[:4]), "sampler"),
         "k6": (lambda *t: k1.sample_grad_patches_sep(*t[:4]),
-               lambda *t: k1.sample_grad_patches_sep_plain(*t[:4]), "sep_launches"),
+               lambda *t: k1.sample_grad_patches_sep_plain(*t[:4]), "sep"),
         "k4": (lambda *t: (k1.sample_ori_hist(*t[:5], 36),),
-               lambda *t: (k1.sample_ori_hist_plain(*t[:5], 36),), "ori_hist_launches"),
+               lambda *t: (k1.sample_ori_hist_plain(*t[:5], 36),), "ori_hist"),
         "k5": (lambda *t: (k1.sample_desc_raw(*t[:4], t[5], t[4], wsp, 8),),
                lambda *t: (k1.sample_desc_raw_plain(*t[:4], t[5], t[4], wsp, 8),),
-               "desc_raw_launches"),
+               "desc_raw"),
     }[which]
     args = (g, lvl, ys, xs, wv, th)
-    before = getattr(k1, count)
+    before = launches(count)
     out = run(*args)
-    assert getattr(k1, count) == before + 1
+    assert launches(count) == before + 1
     ref = plain(*args)
     torch.cuda.synchronize()
     if len(out) == 3:
@@ -702,11 +708,11 @@ def test_align_rgbd_pair_on_the_card(dev):
     from cusift_tpu_torch.models.twoview import align_rgbd_pair
 
     seq = planar_rgbd_sequence(8, 480, 640, seed=2, motion_scale=0.6)
-    before = (k1.launches, k2.launches)
+    before = (launches("sampler"), launches("matcher"))
     res = align_rgbd_pair(seq.images[0], seq.depths[0], seq.images[2], seq.depths[2],
                           seq.intr, SiftConfig(max_kpts=2048, max_kpts_per_octave=1024),
                           MatchConfig(), RansacConfig(inlier_thresh_3d=0.03), device=dev)
-    assert k1.launches > before[0] and k2.launches > before[1]
+    assert launches("sampler") > before[0] and launches("matcher") > before[1]
     assert res.rigid.r.device.type == "cuda" and bool(res.rigid.ok)
     r_true = seq.poses_r[2] @ seq.poses_r[0].T
     t_true = seq.poses_t[2] - r_true @ seq.poses_t[0]
@@ -776,12 +782,12 @@ def test_chunk_rows_equal_frame_steps_on_the_card(dev):
     _, kd, kv, kp = slam._ref_cache
     chunk = torch.from_numpy(np.stack([np.stack([seq.images[i], seq.depths[i]])
                                        for i in range(1, 5)])).to(dev)
-    before = (k1.launches, k2.launches)
+    before = (launches("sampler"), launches("matcher"))
     _, pts, rows = _chunk_step(chunk, slam.intr, kd, kv, kp, cfg, slam.match_cfg,
                                slam.ransac_cfg, slam._next_keys(4))
     # one extract_batch over the chunk: K1 once an octave and a use
-    assert k1.launches - before[0] == 2 * cfg.num_octaves_for(240, 320)
-    assert k2.launches - before[1] == 1
+    assert launches("sampler") - before[0] == 2 * cfg.num_octaves_for(240, 320)
+    assert launches("matcher") - before[1] == 1
     slam._key_ctr -= 4
     for i in range(4):
         _, p, row = _frame_step(chunk[i, 0], chunk[i, 1], slam.intr, kd, kv, kp, cfg,
@@ -808,11 +814,11 @@ def test_stereo_chunk_rows_equal_frame_steps_on_the_card(dev):
     _, kd, kv, kp = slam._ref_cache
     chunk = torch.from_numpy(np.stack([np.stack([seq.images_l[i], seq.images_r[i]])
                                        for i in (1, 2, 3)])).to(dev)
-    before = (k1.launches, k2.launches)
+    before = (launches("sampler"), launches("matcher"))
     _, pts, rows = _stereo_chunk_step(chunk, slam.intr, slam.baseline, kd, kv, kp, cfg,
                                       slam.match_cfg, slam.ransac_cfg, slam._next_keys(3))
-    assert k1.launches - before[0] == 2 * cfg.num_octaves_for(240, 320)
-    assert k2.launches - before[1] == 2
+    assert launches("sampler") - before[0] == 2 * cfg.num_octaves_for(240, 320)
+    assert launches("matcher") - before[1] == 2
     slam._key_ctr -= 3
     for i in range(3):
         _, p, row = slam._sense_step(chunk[i, 0], chunk[i, 1], kd, kv, kp, slam._next_key())
@@ -843,9 +849,9 @@ def test_window_association_is_one_launch_on_the_card(dev):
     kp = torch.stack([p for _, p, _ in feats])
     pr = torch.from_numpy(seq.poses_r[:5]).to(dev)
     pt = torch.from_numpy(seq.poses_t[:5]).to(dev)
-    before = k2.launches
+    before = launches("matcher")
     prob = build_window_problem(kd, kv, kp, pr, pt, intr, torch.ones(5, device=dev))
-    assert k2.launches == before + 1
+    assert launches("matcher") == before + 1
     assert int((prob.w > 0).sum()) > 100
     valid_j = kv[4] & (kp[4, :, 2] > 1e-6)
     batch = match(kd[4], valid_j, kd, kv)
@@ -929,15 +935,15 @@ def test_pair_step_card_matches_cpu(dev, monkeypatch):
     fa = extract(torch.from_numpy(seq.images[0]), cfg)
     out = {}
     for d in (torch.device("cpu"), dev):
-        before = (k1.launches, k2.launches)
+        before = (launches("sampler"), launches("matcher"))
         res, row = pair_step(*(a.to(d) for a in (fa.desc, fa.valid, torch.stack([fa.x, fa.y], -1),
                                                  torch.zeros(768))),
                              torch.from_numpy(seq.images[1]).to(d),
                              torch.from_numpy(seq.intr).to(d), torch.ones((), device=d), cfg,
                              ransac_cfg=RansacConfig(inlier_thresh_epi=4e-3))
         if d.type == "cuda":
-            assert k1.launches - before[0] == 2 * cfg.num_octaves_for(240, 320)
-            assert k2.launches - before[1] == 1
+            assert launches("sampler") - before[0] == 2 * cfg.num_octaves_for(240, 320)
+            assert launches("matcher") - before[1] == 1
         out[d.type] = (res, row)
     (rc, row_c), (rg, row_g) = out["cpu"], out["cuda"]
     assert row_c[15] == row_g[15] == 1.0 and abs(row_c[13] - row_g[13]) <= 1
@@ -1022,11 +1028,11 @@ def test_mono_vo_on_the_card(dev):
                                               num_octaves=3),
                 vo_cfg=VOConfig(max_keyframes=16, kf_every=2, loop_temporal_gap=50),
                 ba_window=4, device=dev)
-    before = (k1.launches, k2.launches)
+    before = (launches("sampler"), launches("matcher"))
     er, et = vo.run(seq.images)
     assert vo._kf_desc.device.type == "cuda" and vo.n_kf >= 4
     assert all(s["ok"] for s in vo.stats) and np.isfinite(et).all() and len(er) == 10
-    assert k1.launches - before[0] == 10 * 2 * 3 and k2.launches > before[1] + 9
+    assert launches("sampler") - before[0] == 10 * 2 * 3 and launches("matcher") > before[1] + 9
 
 
 SEGMENT_SHAPES = {"ba_cam": (3000, 10, (6, 6)), "ba_pt": (3000, 1200, (3, 3)),
@@ -1054,11 +1060,11 @@ def test_segment_kernel_matches_cpu(dev, name):
     x = torch.from_numpy(rng.normal(size=(rows,) + tail).astype(dtype))
     ref = torch.zeros((n,) + tail, dtype=x.dtype).index_add_(0, idx, x)
     p = segment.plan(idx.to(dev), n)
-    before = segment.launches
+    before = launches("segment")
     got = segment.segment_sum(x.to(dev), p)
     again = segment.segment_sum(x.to(dev), p)
     torch.cuda.synchronize()
-    assert segment.launches == before + (2 if rows else 0)
+    assert launches("segment") == before + (2 if rows else 0)
     assert torch.equal(got, again)
     assert got.dtype == ref.dtype and torch.equal(got.cpu(), ref)
 
@@ -1132,7 +1138,7 @@ def test_solvers_rerun_bit_identical_on_the_card(dev):
     from cusift_tpu_torch.optim.sim3graph import Sim3Graph
     from cusift_tpu_torch.optim.sim3graph import optimize as sim3_optimize
 
-    before = segment.launches
+    before = launches("segment")
     prob = _sfm_like_problem(dev)
     cfg = BAConfig(max_iters=6, cg_iters=30)
     runs = [bundle_adjust(prob, cfg) for _ in range(2)]
@@ -1153,7 +1159,7 @@ def test_solvers_rerun_bit_identical_on_the_card(dev):
     scfg = PoseGraphConfig(max_iters=20, cg_iters=60)
     for a, b in zip(sim3_optimize(g3, scfg), sim3_optimize(g3, scfg)):
         assert torch.equal(a, b)
-    assert segment.launches > before
+    assert launches("segment") > before
 
 
 def test_localize_step_refinement_bit_identical_on_the_card(dev):
@@ -1178,10 +1184,10 @@ def test_localize_step_refinement_bit_identical_on_the_card(dev):
                              MatchConfig(), RansacConfig(num_hypotheses=64),
                              torch.Generator(device=d).manual_seed(0))
 
-    before = segment.launches
+    before = launches("segment")
     a, b = run(dev), run(dev)
     torch.cuda.synchronize()
-    assert segment.launches == before + 4
+    assert launches("segment") == before + 4
     for x, y in zip(a[:-1], b[:-1]):
         assert torch.equal(x, y)
     for x, y in zip(a.lmap, b.lmap):
@@ -1212,9 +1218,9 @@ def test_mono_vo_map_anchor_on_the_card(dev):
                                 map_active_kf=8, map_insert_budget=256, map_min_inliers=15,
                                 map_min_obs=2, map_min_anchor=8, loop_temporal_gap=1000),
                 device=dev)
-    before = segment.launches
+    before = launches("segment")
     er, et = vo.run(seq.images)
-    assert vo._lmap.pos.device.type == "cuda" and segment.launches - before == 2 * 13
+    assert vo._lmap.pos.device.type == "cuda" and launches("segment") - before == 2 * 13
     pnp = [s["pnp_ok"] for s in vo.stats]
     assert sum(pnp[3:]) >= 0.7 * len(pnp[3:])
     assert all(s["ok"] or s["pnp_ok"] for s in vo.stats)

@@ -35,9 +35,8 @@ import torch
 from cusift_tpu_torch import MatchConfig, RansacConfig, SiftConfig
 from cusift_tpu_torch.convert import from_numpy, to_numpy
 from cusift_tpu_torch.data.synthetic import warped_pair
-from cusift_tpu_torch.kernels import _build
+from cusift_tpu_torch.kernels import _build, kernel_counts
 from cusift_tpu_torch.kernels import matcher as k2
-from cusift_tpu_torch.kernels import octave as k3
 from cusift_tpu_torch.kernels import sampler as k1
 from cusift_tpu_torch.kernels import segment as kseg
 from cusift_tpu_torch.models.sift import SiftFeatures, extract, extract_batch
@@ -170,23 +169,13 @@ def test_chip_smoke_imports_nothing_of_jax():
     assert "LOADED: []" in proc.stdout
 
 
-def _zero_counts():
-    k1.launches = k1.sep_launches = k1.ori_hist_launches = k1.desc_raw_launches = 0
-    k2.launches = k3.launches = kseg.launches = 0
-
-
-def _counts():
-    return (k1.launches, k1.sep_launches, k1.ori_hist_launches,
-            k1.desc_raw_launches, k2.launches, k3.launches, kseg.launches)
-
-
 def test_cpu_tensors_launch_no_kernel(test_image):
-    _zero_counts()
+    before = kernel_counts()
     cfg = SiftConfig(max_kpts=64, max_kpts_per_octave=32, num_octaves=2)
     f = extract(torch.from_numpy(test_image[:96, :128].copy()), cfg)
     match(f.desc, f.valid, f.desc, f.valid)
     kseg.segment_sum(f.desc, kseg.plan(f.octave, 4))
-    assert _counts() == (0,) * 7
+    assert kernel_counts() == before
 
 
 def test_wrappers_raise_on_a_device_without_kernel():
@@ -209,9 +198,9 @@ def test_cpu_samplers_match_default(test_image, sampler):
     kw = dict(max_kpts=128, max_kpts_per_octave=64, num_octaves=2)
     img = torch.from_numpy(test_image[:128, :160].copy())
     ref = extract(img, SiftConfig(**kw))
-    _zero_counts()
+    before = kernel_counts()
     got = extract(img, SiftConfig(**kw, sampler=sampler))
-    assert _counts() == (0,) * 7
+    assert kernel_counts() == before
     assert int(ref.valid.sum()) > 10
     for name in ("x", "y", "sigma", "orientation", "valid"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
