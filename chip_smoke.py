@@ -4,7 +4,8 @@
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device: card name, and nvidia-smi's name and power limit;
-  2. build: compile kernels K1-K6 and the segment sum from
+  2. build: compile kernels K1-K6, the segment sum and the RANSAC
+     homography's kernels from
      cusift_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source, all
      started together);
   3. K1 against its plain torch version at the octave-0 shape of the bench
@@ -188,7 +189,18 @@ Phases (one line each; any failure raises and exits non-zero):
      against the window's [5, 2048]), each word for word against the
      frames' single launches and within K2's tolerance of its plain
      version, timed beside those single launches, the plain version and
-     one `torch.baddbmm` + `topk`, with the batch's bound.
+     one `torch.baddbmm` + `topk`, with the batch's bound;
+ 36. the RANSAC homography's three kernels (sampling weights, minimal
+     solves and inlier counts, IRLS polish) at graf-batch8's shape (6,144
+     rows of pixel coordinates, 1,024 hypotheses, 5 rounds, 3 px) and
+     MonoVO's keyframe-candidate homography (2,048 rows of normalised
+     coordinates at twice `inlier_thresh_epi`), on a plane with 40%
+     outliers and the same [HYP, 4] samples as the plain version of
+     ops/ransac.py on the card: hypotheses bit for bit on >= 99%, counts
+     equal on >= 99.9%, the same winner, inliers and count, h within 1e-4
+     (relative to max |H|); each kernel timed, the three together beside
+     the plain version's stages and their bound, and one `find_homography`
+     call's host ms and device operations (<= 12, sampling included).
 The line before the last is a JSON object with each kernel's launches on
 its path (K1's and K2's on phases 23-27 under `new_path_launches`, on
 phase 28 under `map_launches`, K1's, K2's and K3's on phases 30-33 under
@@ -1005,9 +1017,9 @@ def batched_fused_path(dev, imgs, h_true, timed_runs=10) -> dict:
     n_big = sum(1 for o in range(n_oct) if side >> o >= 64)   # K3's size gate
     # one batched program: each kernel once an octave and a use for the batch
     want = dict(fused=dict(octave=n_big, ori_hist=n_oct, desc_raw=n_oct, matcher=b - 1,
-                           sampler=0, sep=0, segment=0),
+                           sampler=0, sep=0, segment=0, homography=0),
                 default=dict(octave=0, ori_hist=0, desc_raw=0, matcher=b - 1,
-                             sampler=2 * n_oct, sep=0, segment=0))
+                             sampler=2 * n_oct, sep=0, segment=0, homography=0))
     launches = {}
     for name, cfg in (("fused", fused_cfg), ("default", default_cfg)):
         reset_counts()
@@ -3052,6 +3064,111 @@ def entry_points(dev) -> dict:
     return out
 
 
+# Phase 36: the RANSAC homography kernels at graf-batch8's shape and at
+# MonoVO's (normalised coordinates, twice RansacConfig's inlier_thresh_epi)
+HOM_CASES = {"graf": ("pixels", 6144, 3.0), "mono_vo": ("normalised", 2048, 0.004)}
+HOM_HYP, HOM_ROUNDS = 1024, 5
+HOM_FLOPS_A_ROW = 20.0   # a row's transfer error a hypothesis or a round
+                         # (benchmark/work/ransac.py's count)
+
+
+def hom_scene(kind, n, nhyp, seed):
+    """A plane seen twice (40% outliers, 10% invalid rows) and nhyp samples
+    of 4 valid rows, drawn in numpy."""
+    rng = np.random.default_rng(seed)
+    if kind == "pixels":
+        pa = rng.uniform(0, [1600, 1280], (n, 2))
+        h = np.array([[0.85, -0.15, 120.0], [0.1, 1.1, -40.0], [2e-4, -1e-4, 1.0]])
+        noise, out = 0.8, 400.0
+    else:
+        pa = rng.uniform(-0.6, 0.6, (n, 2))
+        h = np.array([[0.99, -0.02, 0.03], [0.015, 1.01, -0.01], [0.05, -0.03, 1.0]])
+        noise, out = 6e-4, 0.1
+    q = np.c_[pa, np.ones(n)] @ h.T
+    pb = q[:, :2] / q[:, 2:] + rng.normal(0, noise, (n, 2))
+    bad = rng.random(n) < 0.4
+    pb[bad] += rng.uniform(-out, out, (int(bad.sum()), 2))
+    valid = rng.random(n) > 0.1
+    vi = np.flatnonzero(valid)
+    idx = vi[rng.integers(0, len(vi), (nhyp, 4))]
+    return pa.astype(np.float32), pb.astype(np.float32), valid, idx.astype(np.int64)
+
+
+def check_homography(dev) -> dict:
+    """Phase 36: the three kernels against the plain stages on the same
+    samples, timed beside them and their bound, and one find_homography
+    call's host time and device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cusift_tpu_torch import RansacConfig
+    from cusift_tpu_torch.kernels import homography as kh
+    from cusift_tpu_torch.ops import ransac
+
+    out = {}
+    for seed, (name, (kind, n, thresh)) in enumerate(HOM_CASES.items()):
+        pa, pb, valid, idx = (torch.from_numpy(x).to(dev)
+                              for x in hom_scene(kind, n, HOM_HYP, seed))
+        p = kh.weights(valid)
+        hs, counts = kh.score(pa, pb, valid, idx, thresh)
+        h, inl, num, ok = kh.refine(pa, pb, valid, thresh, HOM_ROUNDS, 8, hs=hs, counts=counts)
+        phs = ransac._hypotheses(pa, pb, idx)
+        pcounts = ransac._scores(phs, pa, pb, valid, thresh)
+        best = int(torch.argmax(pcounts))
+        ref = ransac._refine(phs[best], pa, pb, valid, thresh, HOM_ROUNDS, 8)
+        torch.cuda.synchronize()
+        same = (hs.reshape(HOM_HYP, 9).view(torch.int32)
+                == phs.reshape(HOM_HYP, 9).view(torch.int32)).all(-1)
+        same_hyp = float(same.float().mean())
+        same_counts = float((counts.long() == pcounts).float().mean())
+        err = float((h - ref.h).abs().max() / ref.h.abs().max())
+        if not (torch.equal(p, valid.float()) and same_hyp >= 0.99 and same_counts >= 0.999
+                and int(torch.argmax(counts)) == best and torch.equal(inl, ref.inliers)
+                and int(num) == int(ref.num_inliers) and bool(ok) and err <= 1e-4):
+            raise AssertionError(f"homography {name}: hypotheses bit-equal {same_hyp}, counts "
+                                 f"equal {same_counts}, winner {int(torch.argmax(counts))} vs "
+                                 f"{best}, num {int(num)} vs {int(ref.num_inliers)}, "
+                                 f"h rel err {err}")
+        ms = dict(weights=time_ms(lambda: kh.weights(valid), f"hom {name} weights"),
+                  score=time_ms(lambda: kh.score(pa, pb, valid, idx, thresh),
+                                f"hom {name} score"),
+                  refine=time_ms(lambda: kh.refine(pa, pb, valid, thresh, HOM_ROUNDS, 8,
+                                                   hs=hs, counts=counts), f"hom {name} refine"))
+
+        def plain():
+            phs = ransac._hypotheses(pa, pb, idx)
+            pc = ransac._scores(phs, pa, pb, valid, thresh)
+            ransac._refine(phs[torch.argmax(pc)], pa, pb, valid, thresh, HOM_ROUNDS, 8)
+
+        plain_ms = time_ms(plain, f"hom {name} plain", iters=3)
+        b = bound(nbytes(pa, pb, valid, idx, inl),
+                  (HOM_HYP + HOM_ROUNDS + 1) * n * HOM_FLOPS_A_ROW)
+        # one find_homography call: its device operations and host time
+        cfg = RansacConfig(inlier_thresh=thresh)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        ransac.find_homography(pa, pb, valid, cfg, gen)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ransac.find_homography(pa, pb, valid, cfg, gen)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name != "ransac.homography"]
+        if len(ops) > 12:
+            raise AssertionError(f"homography {name}: {len(ops)} device operations: {ops}")
+        host = wall_ms(lambda: ransac.find_homography(pa, pb, valid, cfg, gen).h.cpu(), 20)
+        total = sum(ms.values())
+        log("hom", case=name, rows=n, hypotheses=HOM_HYP, rounds=HOM_ROUNDS,
+            hyp_bit_equal=f"{same_hyp:.4f}", counts_equal=f"{same_counts:.4f}",
+            inliers=int(num), h_rel_err=f"{err:.2e}",
+            **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()}, ms=f"{total:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b['bound_ms']:.6f}",
+            bound_by=b["bound_by"], call_ops=len(ops),
+            call_host_ms=f"{statistics.median(host):.3f}", card=json.dumps(smi_line()))
+        out[name] = dict(ms=total, kernel_ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                         hyp_bit_equal=same_hyp, counts_equal=same_counts, call_ops=len(ops),
+                         call_host_ms=statistics.median(host), **b)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3142,6 +3259,9 @@ def main() -> int:
     k2_batched = batched_matcher(dev, batched_k2_in)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_batched["max_abs_err"])
     log("phase 35", seconds=f"{time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    hom = check_homography(dev)
+    log("phase 36", seconds=f"{time.perf_counter() - t0:.3f}")
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -3245,6 +3365,15 @@ def main() -> int:
              vo_launches=vo["launches"]["segment"], max_abs_err=seg["max_abs_err"],
              **{k: seg_main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                          "bound_by")}, calls=seg["calls"]),
+        # not a TPU kernel: the reference's RANSAC is XLA; its JSON numbers
+        # are graf-batch8's shape, MonoVO's under `mono_vo`
+        dict(name="find_homography", route="cuda", source=src + "homography.cu",
+             replaces="none (XLA: cusift_tpu/ops/ransac.py:58 find_homography)",
+             path="two-view (phase 5)", launches=launches["homography"],
+             vo_launches=vo["launches"]["homography"], vo_path="mono VO (phase 20)",
+             map_launches=mvo["launches"]["homography"],
+             cli={tag: r["launches"]["homography"] for tag, r in cli.items()},
+             mono_vo=hom["mono_vo"], **hom["graf"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

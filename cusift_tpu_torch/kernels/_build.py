@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sampler.cu", "matcher.cu", "octave.cu", "segment.cu")
+SOURCES = ("sampler.cu", "matcher.cu", "octave.cu", "segment.cu", "homography.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -55,6 +55,14 @@ SIGNATURES = {
     # segment sum: x, order, seg, ends, blocks, out, rows, n, d, nb, tile,
     #     d_tile, chunk, threads, smem, double_precision, stream
     "cusift_segment_sum": ((_P,) * 6 + (_I,) * 10 + (_P,), _I),
+    # RANSAC homography: valid, n, p, stream
+    "cusift_homography_weights": ((_P, _I, _P, _P), _I),
+    # pa, pb, valid, n, idx, nhyp, thr2, hs, counts, stream
+    "cusift_homography_score": ((_P,) * 3 + (_I, _P, _I, _F) + (_P,) * 3, _I),
+    # pa, pb, valid, n, hs, counts, nhyp, h_in, thr2, iters, min_matches,
+    #     h_out, inliers, num, ok, stream
+    "cusift_homography_refine": ((_P,) * 3 + (_I, _P, _P, _I, _P, _F, _I, _I) + (_P,) * 5,
+                                 _I),
 }
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"

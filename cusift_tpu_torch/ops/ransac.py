@@ -8,6 +8,12 @@ samples come from a `torch.Generator`; with none, one is seeded from
 `cfg.seed`.  Torch cannot reproduce jax's threefry stream, so the tests
 hold this module on outcomes, or feed both packages the same indices.
 
+On a CUDA tensor `find_homography` and `improve_homography` run as three
+CUDA kernels (`kernels/homography.py`): the sampling weights, the minimal
+solves with their inlier counts, and the IRLS polish with the result.
+The draws stay `torch.multinomial`'s, from the caller's generator.  The
+torch code here is their plain version, taken for CPU tensors only.
+
 `find_rigid` also takes a leading frame axis with one generator a frame,
 which replaces the reference's `jax.vmap(find_rigid)` in the tracking
 chunk: each frame draws its hypotheses from its own generator, and the
@@ -22,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RansacConfig
+from ..kernels import homography as kh
 from ..utils import trace
 from ..utils.precision import f32_matmuls, pin_f32
 from .geometry import apply_homography, procrustes, solve_homography
@@ -66,8 +73,31 @@ def _sample_indices(gen: torch.Generator, valid: torch.Tensor, nhyp: int,
     """
     p = valid.to(torch.float32).to(gen.device)
     p = torch.where(p.sum() > 0, p, torch.ones_like(p))
+    return _draw(gen, p, nhyp, k).to(valid.device)
+
+
+def _draw(gen: torch.Generator, p: torch.Tensor, nhyp: int, k: int) -> torch.Tensor:
+    """[nhyp, k] indices drawn with replacement by the weights p [N]."""
     idx = torch.multinomial(p, nhyp * k, replacement=True, generator=gen)
-    return idx.reshape(nhyp, k).to(valid.device)
+    return idx.reshape(nhyp, k)
+
+
+def _hypotheses(pa, pb, idx):
+    """[HYP, 3, 3] minimal homographies of the samples idx [HYP, 4]: the 4
+    sampled points with unit weights, which equals one-hot weights over
+    all N (a repeated index counts twice in both) without the [HYP, N]
+    solve."""
+    ones = torch.ones(idx.shape, dtype=pa.dtype, device=pa.device)
+    return solve_homography(pa[idx], pb[idx], ones)
+
+
+def _scores(hs, pa, pb, valid, thresh: float):
+    """[HYP] inliers of each hypothesis over the valid rows, -1 where it is
+    not finite."""
+    finite = torch.isfinite(hs.reshape(hs.shape[0], -1)).all(-1)
+    err = ((apply_homography(hs, pa) - pb) ** 2).sum(-1)       # [HYP, N]
+    counts = ((err < thresh ** 2) & valid).sum(-1)
+    return torch.where(finite, counts, torch.full_like(counts, -1))
 
 
 def _irls(h, pa, pb, valid, thresh: float, iters: int):
@@ -80,6 +110,17 @@ def _irls(h, pa, pb, valid, thresh: float, iters: int):
         good = torch.isfinite(h2).all() & (w.sum() >= 4)
         h = torch.where(good, h2, h)
     return h
+
+
+def _refine(h, pa, pb, valid, thresh: float, iters: int,
+            min_matches: int) -> HomographyResult:
+    """The IRLS polish of h and the result it gives."""
+    h = _irls(h, pa, pb, valid, thresh, iters)
+    err = ((apply_homography(h, pa) - pb) ** 2).sum(-1)
+    inliers = (err < thresh ** 2) & valid
+    num = inliers.sum()
+    ok = (valid.sum() >= min_matches) & (num >= 4)
+    return HomographyResult(h=h, inliers=inliers, num_inliers=num, ok=ok)
 
 
 def find_homography(pa: torch.Tensor, pb: torch.Tensor, valid: torch.Tensor,
@@ -95,24 +136,19 @@ def _find_homography(pa, pb, valid, cfg: RansacConfig, generator) -> HomographyR
     pin_f32()
     if generator is None:
         generator = torch.Generator(device=pa.device).manual_seed(cfg.seed)
-    idx = _sample_indices(generator, valid, cfg.num_hypotheses, 4)
-    # the 4 sampled points with unit weights == one-hot weights over all N
-    # (a repeated index counts twice in both), without the [HYP, N] solve
-    ones = torch.ones(idx.shape, dtype=pa.dtype, device=pa.device)
-    hs = solve_homography(pa[idx], pb[idx], ones)              # [HYP, 3, 3]
-    finite = torch.isfinite(hs.reshape(hs.shape[0], -1)).all(-1)
-
-    err = ((apply_homography(hs, pa) - pb) ** 2).sum(-1)       # [HYP, N]
-    counts = ((err < cfg.inlier_thresh ** 2) & valid).sum(-1)
-    counts = torch.where(finite, counts, torch.full_like(counts, -1))
-    h = hs[torch.argmax(counts)]
-
-    h = _irls(h, pa, pb, valid, cfg.inlier_thresh, cfg.refine_iters)
-    err = ((apply_homography(h, pa) - pb) ** 2).sum(-1)
-    inliers = (err < cfg.inlier_thresh ** 2) & valid
-    num = inliers.sum()
-    ok = (valid.sum() >= cfg.min_matches) & (num >= 4)
-    return HomographyResult(h=h, inliers=inliers, num_inliers=num, ok=ok)
+    thresh, nhyp = cfg.inlier_thresh, cfg.num_hypotheses
+    if pa.device.type != "cpu":
+        # the kernels, on the plain version's draws
+        p = kh.weights(valid).to(generator.device)
+        idx = _draw(generator, p, nhyp, 4).to(pa.device)
+        hs, counts = kh.score(pa, pb, valid, idx, thresh)
+        return HomographyResult(*kh.refine(pa, pb, valid, thresh, cfg.refine_iters,
+                                           cfg.min_matches, hs=hs, counts=counts))
+    idx = _sample_indices(generator, valid, nhyp, 4)
+    hs = _hypotheses(pa, pb, idx)
+    counts = _scores(hs, pa, pb, valid, thresh)
+    return _refine(hs[torch.argmax(counts)], pa, pb, valid, thresh, cfg.refine_iters,
+                   cfg.min_matches)
 
 
 def improve_homography(h: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
@@ -121,6 +157,8 @@ def improve_homography(h: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
     """Standalone IRLS polish of an existing homography (a tracker's
     prediction, for example); `find_homography` runs the same loop."""
     pin_f32()
+    if pa.device.type != "cpu":
+        return kh.refine(pa, pb, valid, thresh, iters, h=h)[0]
     return _irls(h, pa, pb, valid, thresh, iters)
 
 

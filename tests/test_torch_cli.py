@@ -27,7 +27,7 @@ def _run(capsys, *argv):
     out = capsys.readouterr().out
     last = json.loads(out.strip().splitlines()[-1].split("kernel launches: ", 1)[1])
     assert last == {k: 0 for k in ("sampler", "matcher", "octave", "ori_hist", "desc_raw",
-                                   "sep", "segment")}
+                                   "sep", "segment", "homography")}
     return out
 
 

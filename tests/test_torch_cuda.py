@@ -36,7 +36,14 @@ card at tests/test_essential.py's and tests/test_pnp.py's bars; the Sim(3)
 `index_add_` on the same inputs at each user's shapes, and reruns of BA
 off the grid, the pose graph's CG, the Sim(3) CG and `localize_step`'s
 refinement bit-identical; a short map-anchored `MonoVO` run on the card
-at tests/test_monomap.py's bars.
+at tests/test_monomap.py's bars.  The RANSAC homography kernels
+(`kernels/homography.py`) against the plain stages of ops/ransac.py on the
+card, on the same samples: hypotheses within the float64 DLT bound of
+tests/test_torch_twoview.py, counts equal on >= 99.9% of hypotheses (the
+kernels sum as the plain version does on the card, so they are most often
+equal bit for bit), the same winner, inliers and count, and the IRLS's h
+within 1e-4 of max |H| (its sums over all rows take another order than
+cuBLAS's); `find_homography` at most 12 device operations a call.
 """
 
 import numpy as np
@@ -1226,3 +1233,181 @@ def test_mono_vo_map_anchor_on_the_card(dev):
     assert all(s["ok"] or s["pnp_ok"] for s in vo.stats)
     ate = ate_rmse(er, et, seq.poses_r, seq.poses_t, with_scale=True)
     assert ate < 0.16 * trajectory_path_length(seq.poses_r, seq.poses_t)[-1]
+
+
+# The RANSAC homography kernels (kernels/homography.py) against the plain
+# version of ops/ransac.py on the card, on the same [HYP, 4] samples of
+# chip_smoke.py's scene (phase 36): graf-batch8's shape, MonoVO's
+# keyframe-candidate homography (normalised coordinates at twice
+# inlier_thresh_epi) and a ragged one (N and HYP not multiples of the
+# blocks').
+HOM_SHAPES = {"graf": ("pixels", 6144, 1024, 3.0), "mono_vo": ("normalised", 2048, 1024, 0.004),
+              "ragged": ("pixels", 1001, 77, 3.0)}
+# a float32 minimal solve within C_MINIMAL x 2^-23 x cond(A^T A) of the
+# float64 DLT, relative to max |H| (tests/test_torch_twoview.py)
+C_MINIMAL = 128.0
+
+
+def hom_scene(kind, n, nhyp, seed):
+    """chip_smoke.py's scene for phase 36: a plane seen twice (40% outliers,
+    10% invalid rows) and nhyp samples of 4 valid rows."""
+    from chip_smoke import hom_scene
+
+    return hom_scene(kind, n, nhyp, seed)
+
+
+def _dlt64(pa, pb):
+    """The float64 minimal homography with the packages' normalisation and
+    its normal matrix's condition."""
+    def norm(x):
+        c = x.mean(0)
+        s = np.sqrt(2) / np.linalg.norm(x - c, axis=1).mean()
+        return (x - c) * s, np.array([[s, 0, -s * c[0]], [0, s, -s * c[1]], [0, 0, 1]])
+
+    (an, ta), (bn, tb) = norm(pa.astype(np.float64)), norm(pb.astype(np.float64))
+    rows = [[xa, ya, 1, 0, 0, 0, -xb * xa, -xb * ya] for (xa, ya), (xb, _) in zip(an, bn)]
+    rows += [[0, 0, 0, xa, ya, 1, -yb * xa, -yb * ya] for (xa, ya), (_, yb) in zip(an, bn)]
+    a, b = np.array(rows), np.concatenate([bn[:, 0], bn[:, 1]])
+    h = np.linalg.inv(tb) @ np.append(np.linalg.solve(a, b), 1.0).reshape(3, 3) @ ta
+    return h / h[2, 2], np.linalg.cond(a.T @ a)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("name", sorted(HOM_SHAPES))
+def test_homography_kernels_match_plain(dev, name):
+    """Weights equal; each hypothesis within the float64 DLT bound; counts
+    equal on >= 99.9% of hypotheses; the same winner; after 5 IRLS rounds h
+    within 1e-4 of the plain version's (relative to max |H|), the same
+    inliers, count and ok."""
+    from cusift_tpu_torch.kernels import homography as kh
+    from cusift_tpu_torch.ops import ransac
+
+    kind, n, nhyp, thresh = HOM_SHAPES[name]
+    pa, pb, valid, idx = hom_scene(kind, n, nhyp, len(name))
+    ta, tb, tv, ti = (torch.from_numpy(x).to(dev) for x in (pa, pb, valid, idx))
+    before = launches("homography")
+    p = kh.weights(tv)
+    hs, counts = kh.score(ta, tb, tv, ti, thresh)
+    first = kh.refine(ta, tb, tv, thresh, 0, 8, hs=hs, counts=counts)[0]
+    h, inl, num, ok = kh.refine(ta, tb, tv, thresh, 5, 8, hs=hs, counts=counts)
+    torch.cuda.synchronize()
+    assert launches("homography") == before + 4
+    assert torch.equal(p, tv.float())
+    for i in range(0, nhyp, max(1, nhyp // 64)):
+        if len(set(idx[i].tolist())) == 4:
+            truth, cond = _dlt64(pa[idx[i]], pb[idx[i]])
+            err = np.abs(hs[i].double().cpu().numpy() - truth).max()
+            assert err <= C_MINIMAL * 2.0 ** -23 * cond * np.abs(truth).max(), i
+    phs = ransac._hypotheses(ta, tb, ti)
+    pcounts = ransac._scores(phs, ta, tb, tv, thresh)
+    assert float((counts.long() == pcounts).float().mean()) >= 0.999
+    best = int(torch.argmax(pcounts))
+    assert int(torch.argmax(counts)) == best and _same_bits(first, hs[best])
+    ref = ransac._refine(phs[best], ta, tb, tv, thresh, 5, 8)
+    _close_rel(h, ref.h, 1e-4)
+    assert torch.equal(inl, ref.inliers) and int(num) == int(ref.num_inliers)
+    assert bool(ok) == bool(ref.ok) and bool(ok)
+
+
+def test_homography_kernels_degenerate_inputs(dev):
+    """No valid row: uniform weights, ok false.  Fewer than 4 valid rows:
+    the winner kept through IRLS, ok false.  Repeated rows in a sample: a
+    count of -1 exactly where the hypothesis is not finite, in the kernel
+    and the plain version alike.  A NaN row: every hypothesis that samples
+    it counts -1, as the plain version's.  Ties in the counts: the first
+    index, as torch.argmax, and index 0 when all are -1."""
+    from cusift_tpu_torch.kernels import homography as kh
+    from cusift_tpu_torch.ops import ransac
+
+    pa, pb, valid, idx = hom_scene("pixels", 300, 40, 5)
+    idx[7] = idx[7, 0]                     # one row four times
+    idx[8, 2] = idx[8, 1]                  # a repeated row
+    ta, tb, tv, ti = (torch.from_numpy(x).to(dev) for x in (pa, pb, valid, idx))
+    none = torch.zeros(300, dtype=torch.bool, device=dev)
+    assert torch.equal(kh.weights(none), torch.ones(300, device=dev))
+    hs, counts = kh.score(ta, tb, none, ti, 3.0)
+    finite = torch.isfinite(hs.reshape(40, 9)).all(-1)
+    assert torch.equal(counts, torch.where(finite, 0, -1).int())
+    h, inl, num, ok = kh.refine(ta, tb, none, 3.0, 5, 8, hs=hs, counts=counts)
+    assert _same_bits(h, hs[int(torch.argmax(counts))])
+    assert not inl.any() and int(num) == 0 and not bool(ok)
+    three = none.clone()
+    three[ti[0, :3]] = True
+    hs, counts = kh.score(ta, tb, three, ti, 3.0)
+    h, inl, num, ok = kh.refine(ta, tb, three, 3.0, 5, 4, hs=hs, counts=counts)
+    assert _same_bits(h, hs[int(torch.argmax(counts))]) and int(num) <= 3 and not bool(ok)
+    # repeated rows: a count of -1 exactly where the hypothesis is not finite
+    hs, counts = kh.score(ta, tb, tv, ti, 3.0)
+    phs = ransac._hypotheses(ta, tb, ti)
+    for got, n_got in ((hs, counts), (phs, ransac._scores(phs, ta, tb, tv, 3.0))):
+        assert torch.equal(n_got == -1, ~torch.isfinite(got.reshape(40, 9)).all(-1))
+    nan_pa = ta.clone()
+    nan_pa[ti[3, 1]] = float("nan")
+    hs, counts = kh.score(nan_pa, tb, tv, ti, 3.0)
+    phs = ransac._hypotheses(nan_pa, tb, ti)
+    hit = (ti == ti[3, 1]).any(1)
+    assert bool((counts[hit] == -1).all()) and not torch.isfinite(phs[hit]).any()
+    assert torch.equal(counts[~hit] == -1, ~torch.isfinite(hs[~hit].reshape(-1, 9)).all(-1))
+    tied = torch.tensor([3, 7, 2, 7, 7, 1], dtype=torch.int32, device=dev)
+    six = torch.arange(54, dtype=torch.float32, device=dev).reshape(6, 3, 3)
+    got = kh.refine(ta, tb, tv, 3.0, 0, hs=six, counts=tied)[0]
+    assert torch.equal(got, six[1])
+    got = kh.refine(ta, tb, tv, 3.0, 0, hs=six, counts=torch.full_like(tied, -1))[0]
+    assert torch.equal(got, six[0])
+
+
+def test_homography_kernels_rerun_bit_identical(dev):
+    """Two runs of the three kernels at graf's shape give the same bytes."""
+    from cusift_tpu_torch.kernels import homography as kh
+
+    pa, pb, valid, idx = (torch.from_numpy(x).to(dev)
+                          for x in hom_scene("pixels", 6144, 1024, 9))
+    runs = []
+    for _ in range(2):
+        hs, counts = kh.score(pa, pb, valid, idx, 3.0)
+        runs.append((kh.weights(valid), hs, counts,
+                     *kh.refine(pa, pb, valid, 3.0, 5, 8, hs=hs, counts=counts)))
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(*runs))
+
+
+def test_find_homography_on_the_card(dev):
+    """find_homography on CUDA tensors: the plain version's draws (the same
+    generator state gives the plain version's samples), three kernels and
+    at most 12 device operations, sampling included; the result as the
+    plain version's from those samples.  improve_homography: one kernel,
+    within 1e-4 of the plain IRLS."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cusift_tpu_torch import RansacConfig
+    from cusift_tpu_torch.ops import ransac
+
+    pa, pb, valid, _ = (torch.from_numpy(x).to(dev) for x in hom_scene("pixels", 6144, 8, 13))
+    cfg = RansacConfig()
+    ransac.find_homography(pa, pb, valid, cfg, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    before = launches("homography")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = ransac.find_homography(pa, pb, valid, cfg, torch.Generator(device=dev).manual_seed(2))
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name != "ransac.homography"]
+    assert launches("homography") == before + 3 and len(ops) <= 12, [e.name for e in ops]
+    idx = ransac._sample_indices(torch.Generator(device=dev).manual_seed(2), valid,
+                                 cfg.num_hypotheses, 4)
+    hs = ransac._hypotheses(pa, pb, idx)
+    best = torch.argmax(ransac._scores(hs, pa, pb, valid, cfg.inlier_thresh))
+    ref = ransac._refine(hs[best], pa, pb, valid, cfg.inlier_thresh, cfg.refine_iters,
+                         cfg.min_matches)
+    _close_rel(res.h, ref.h, 1e-4)
+    assert int(res.num_inliers) == int(ref.num_inliers) and bool(res.ok)
+    assert res.inliers.dtype == torch.bool and res.num_inliers.dtype == torch.int64
+    start = res.h.clone()
+    start[0, 2] += 2.0
+    before = launches("homography")
+    got = ransac.improve_homography(start, pa, pb, valid)
+    assert launches("homography") == before + 1
+    _close_rel(got, ransac._irls(start, pa, pb, valid, 3.0, 5), 1e-4)

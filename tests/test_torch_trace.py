@@ -110,7 +110,7 @@ def test_spans_are_profiler_host_events():
 def test_kernel_counts_keys_read_the_registry():
     before = kernel_counts()
     assert list(before) == ["sampler", "matcher", "octave", "ori_hist", "desc_raw", "sep",
-                            "segment"]
+                            "segment", "homography"]
     trace.count("kernel.matcher")
     trace.count("kernel.sampler", 10)
     after = kernel_counts()
@@ -121,7 +121,8 @@ def test_kernel_counts_keys_read_the_registry():
     ("sampler", "sample_grad_patches", "sampler"), ("sampler", "sample_grad_patches_sep", "sep"),
     ("sampler", "sample_ori_hist", "ori_hist"), ("sampler", "sample_desc_raw", "desc_raw"),
     ("matcher", "top2", "matcher"), ("octave", "fused_octave", "octave"),
-    ("segment", "segment_sum", "segment")])
+    ("segment", "segment_sum", "segment"), ("homography", "weights", "homography"),
+    ("homography", "score", "homography"), ("homography", "refine", "homography")])
 def test_each_wrapper_counts_its_launch_under_its_key(module, fn, key):
     """Each wrapper counts one launch under the key `kernel_counts` has
     always given it (the launch itself runs on the card:
